@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 MAX_ELLIPSES = 12
+CHUNK = 32  # images made together; bounds the (CHUNK, size, size) temporaries
 
 
 def _blur(img: np.ndarray, sigma: float) -> np.ndarray:
@@ -22,9 +23,9 @@ def _blur(img: np.ndarray, sigma: float) -> np.ndarray:
     return np.fft.irfft2(np.fft.rfft2(img) * ker, s=(h, w)).astype(np.float32)
 
 
-def mri_phantoms(n: int, size: int = 256, seed: int = 0, chunk: int = 32) -> np.ndarray:
-    """(n, size, size) float32 phantoms in [0, 1], made ``chunk`` at a time;
-    image i depends only on ``(seed, i)``."""
+def mri_phantoms(n: int, size: int = 256, seed: int = 0) -> np.ndarray:
+    """(n, size, size) float32 phantoms in [0, 1]; image i depends only on
+    ``(seed, i)``."""
     grid = np.arange(size, dtype=np.float32)
     c = (size - 1) / 2.0
     out = np.empty((n, size, size), np.float32)
@@ -46,11 +47,10 @@ def mri_phantoms(n: int, size: int = 256, seed: int = 0, chunk: int = 32) -> np.
         q += (qc[:, None].astype(np.float32) * dx * dx)[:, None, :]
         return q <= 1.0
 
-    # every image's parameters and noise fields come from its own
-    # generator, so ``chunk`` (a memory knob) does not change the batch
+    # every image's parameters and noise fields come from its own generator
     gens = [np.random.default_rng((seed, i)) for i in range(n)]
-    for lo in range(0, n, chunk):
-        g = gens[lo:lo + chunk]
+    for lo in range(0, n, CHUNK):
+        g = gens[lo:lo + CHUNK]
         k = len(g)
         draw = lambda f: np.stack([f(r) for r in g])  # noqa: E731
         centre = np.full(k, c)

@@ -14,16 +14,10 @@ broadcasts over leading axes. Transforms use ``torch.fft``'s default
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
-
-# The 'matmul' data-consistency path runs its DFTs as float32 matrix
-# products. TF32 keeps ~10 mantissa bits; on the TPU a single-pass bf16 DFT
-# cost 0.5 dB of reconstruction PSNR, so reduced-precision products stay off
-# until a measurement shows them harmless (this is PyTorch's default; it is
-# set here so that no caller's setting leaks into the solve).
-torch.backends.cuda.matmul.allow_tf32 = False
 
 DC_METHODS = ("auto", "fft", "matmul")
 
@@ -58,6 +52,25 @@ def data_consistency(v: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, rho) 
     blended = (la2 * vf + y) / (1.0 + la2)
     xf = torch.where(mask != 0, blended, vf)
     return torch.abs(torch.real(ifft2(xf)))
+
+
+@contextlib.contextmanager
+def full_precision_matmul():
+    """Float32 matrix products at full precision inside the block, and the
+    caller's setting back after it.
+
+    The 'matmul' data-consistency path runs its DFTs as float32 matrix
+    products. TF32 keeps ~10 mantissa bits; on the TPU a single-pass bf16
+    DFT cost 0.5 dB of reconstruction PSNR, so reduced-precision products
+    stay off there until a measurement shows them harmless, whatever
+    precision the caller chose for the rest of the process.
+    """
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def _dft_mats(n: int, dtype: torch.dtype, device=None):
@@ -129,8 +142,9 @@ def make_rfft_data_consistency(y: torch.Tensor, mask: torch.Tensor, rho, method:
 
     with ``m~(k) = m(-k)``. A and C are computed once; each iteration is
     rfft2, one multiply-add and irfft2. ``method='matmul'`` runs the
-    transforms as matrix products (``matmul_rfft2``/``matmul_irfft2``);
-    ``'auto'`` means ``'fft'`` in this package.
+    transforms as matrix products (``matmul_rfft2``/``matmul_irfft2``,
+    under ``full_precision_matmul``); ``'auto'`` means ``'fft'`` in this
+    package.
 
     Returns ``dc(v) -> x`` for real v of shape (..., H, W).
     """
@@ -160,9 +174,11 @@ def make_rfft_data_consistency(y: torch.Tensor, mask: torch.Tensor, rho, method:
 
         def dc(v: torch.Tensor) -> torch.Tensor:
             m4 = tuple(t.to(v.dtype) for t in mats)
-            vr, vi = matmul_rfft2(v, m4)
             a = a_half.to(v.dtype)
-            return torch.abs(matmul_irfft2(a * vr + cr.to(v.dtype), a * vi + ci.to(v.dtype), h, w, m4))
+            with full_precision_matmul():
+                vr, vi = matmul_rfft2(v, m4)
+                x = matmul_irfft2(a * vr + cr.to(v.dtype), a * vi + ci.to(v.dtype), h, w, m4)
+            return torch.abs(x)
 
         return dc
 

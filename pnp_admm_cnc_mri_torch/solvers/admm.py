@@ -8,10 +8,12 @@ iteration (reference ``ADMM_L1.py:111-126``):
     z_{k+1} = prox(x_{k+1} + w_k)           # L1 / CNC
     w_{k+1} = w_k + x_{k+1} - z_{k+1}       # dual ascent
 
-With ``fused=True`` the z and w updates run as one CUDA kernel
-(``ops/tail_kernels.py``). Tolerance stopping (``cfg.tol``), the
-adaptive-rho variants, the PnP solvers and ``admm_l1_jit`` are not ported
-yet (ROADMAP.md, M3).
+The z and w updates run as one CUDA kernel (``ops/tail_kernels.py``)
+unless ``fused=False``. The JAX package's solvers default to unfused; the
+port's default to fused, since on the card the fused solve is faster and
+gives the same result (PERF.md). ``fused=False`` is kept as the kernels'
+reference. Tolerance stopping (``cfg.tol``), the adaptive-rho variants,
+the PnP solvers and ``admm_l1_jit`` are not ported yet (ROADMAP.md, M3).
 """
 
 from __future__ import annotations
@@ -62,14 +64,12 @@ def admm_step(
     mask: torch.Tensor,
     rho,
     z_update: ZUpdate,
-    clamp: bool = False,
     tail=None,
     dc=None,
 ) -> ADMMState:
     """One ADMM iteration. ``tail(i, x, z, w) -> (z_new, w_new)`` replaces
     the z-update and dual ascent with a fused one; ``dc`` is a precomputed
-    data-consistency solve (``fourier.make_rfft_data_consistency``);
-    ``clamp`` is the CNN variants' [0, 1] clamp of x, z and w."""
+    data-consistency solve (``fourier.make_rfft_data_consistency``)."""
     if dc is not None:
         x = dc(state.z - state.w)
     else:
@@ -80,8 +80,6 @@ def admm_step(
     else:
         z = z_update(i, x, state.z, state.w)
         w = state.w + x - z
-    if clamp:
-        x, z, w = prox.clip01(x), prox.clip01(z), prox.clip01(w)
     return ADMMState(x=x, z=z, w=w)
 
 
@@ -91,7 +89,6 @@ def run_admm(
     iter_num: int,
     rho,
     z_update: ZUpdate,
-    clamp: bool = False,
     dtype=torch.float32,
     collect_residuals: bool = False,
     tail=None,
@@ -112,7 +109,7 @@ def run_admm(
     dc = fourier.make_rfft_data_consistency(y, mask, rho, method=dc_method) if use_rfft else None
     res = []
     for i in range(iter_num):
-        state = admm_step(state, i, y, mask, rho, z_update, clamp, tail=tail, dc=dc)
+        state = admm_step(state, i, y, mask, rho, z_update, tail=tail, dc=dc)
         if collect_residuals:
             res.append(reductions.primal_residual_norm(state.x, state.z))
     return state, (torch.stack(res) if collect_residuals else None)
@@ -128,14 +125,16 @@ def _prepare(y, mask, cfg: ADMMConfig, device):
     return torch.as_tensor(y, device=device), torch.as_tensor(mask, device=device)
 
 
-def admm_l1(y, mask, cfg: ADMMConfig, dtype=torch.float32, fused: bool = False,
+def admm_l1(y, mask, cfg: ADMMConfig, dtype=torch.float32, fused: bool = True,
             device=None, **kw):
     """ADMM-L1 (reference ``ADMM_L1.py``): ``z = soft(x + w, rho * lam)``.
 
     ``y`` (complex k-space, (..., H, W)) and ``mask`` may be numpy arrays or
     tensors; they are moved to ``device`` (None: the CUDA card). ``fused``
-    runs the z/w tail as the CUDA kernel ``tail_kernels.l1_tail``. Other
-    keywords go to ``run_admm``. Returns ``(final_state, residuals)``.
+    runs the z/w tail as the CUDA kernel ``tail_kernels.l1_tail`` (its
+    plain version for CPU tensors); ``fused=False`` is the unfused
+    reference. Other keywords go to ``run_admm``. Returns
+    ``(final_state, residuals)``.
     """
     y, mask = _prepare(y, mask, cfg, device)
     thr = cfg.rho * cfg.lam
@@ -149,7 +148,7 @@ def admm_l1(y, mask, cfg: ADMMConfig, dtype=torch.float32, fused: bool = False,
     return run_admm(y, mask, cfg.iter_num, cfg.rho, z_update, dtype=dtype, tail=tail, **kw)
 
 
-def admm_cnc(y, mask, cfg: ADMMConfig, dtype=torch.float32, fused: bool = False,
+def admm_cnc(y, mask, cfg: ADMMConfig, dtype=torch.float32, fused: bool = True,
              device=None, **kw):
     """ADMM-CNC (reference ``ADMM_CNC .py``): GMC firm-threshold z-update;
     ``fused`` runs ``tail_kernels.cnc_tail``. Arguments as ``admm_l1``."""

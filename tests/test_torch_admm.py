@@ -204,10 +204,11 @@ def test_data_generators_equal_the_jax_packages():
 
 
 def test_phantoms_are_deterministic_images():
-    a = phantom.mri_phantoms(5, 48, seed=0, chunk=2)
+    a = phantom.mri_phantoms(5, 48, seed=0)
     assert a.shape == (5, 48, 48) and a.dtype == np.float32
     assert a.min() >= 0.0 and a.max() <= 1.0 and a.std() > 0.05
-    np.testing.assert_array_equal(a, phantom.mri_phantoms(5, 48, seed=0, chunk=3))
+    np.testing.assert_array_equal(a, phantom.mri_phantoms(5, 48, seed=0))
+    np.testing.assert_array_equal(a[:3], phantom.mri_phantoms(3, 48, seed=0))
     assert not np.array_equal(a, phantom.mri_phantoms(5, 48, seed=1))
 
 

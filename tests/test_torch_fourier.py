@@ -122,5 +122,26 @@ def test_auto_means_fft_and_unknown_methods_raise():
         fourier.make_rfft_data_consistency(_t(y), _t(mask), 0.05, method="fast")
 
 
-def test_tf32_is_off_for_the_dft_products():
-    assert torch.backends.cuda.matmul.allow_tf32 is False
+def test_tf32_is_off_for_the_dft_products(monkeypatch):
+    """The matmul DC's DFT products run at full float32 precision even when
+    the caller allows TF32, and the caller's setting is back afterwards."""
+    img, mask, _, y = _scenario(np.float32, seed=5)
+    dc = fourier.make_rfft_data_consistency(_t(y), _t(mask), 0.05, method="matmul")
+    seen = []
+    for name in ("matmul_rfft2", "matmul_irfft2"):
+        orig = getattr(fourier, name)
+
+        def spy(*a, _orig=orig, **k):
+            seen.append(torch.get_float32_matmul_precision())
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(fourier, name, spy)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        dc(_t(img))
+        after = torch.get_float32_matmul_precision()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert seen == ["highest", "highest"]
+    assert after == "high"
