@@ -5,8 +5,9 @@
 
 Phases, each timed and each fatal on failure:
 
-- build:   compiles the port's CUDA kernels from ``pnp_admm_cnc_mri_torch/csrc``
-           with nvcc (while the phantom batch is made on the host);
+- build:   compiles the port's two CUDA libraries from
+           ``pnp_admm_cnc_mri_torch/csrc``, one nvcc each, in parallel (while
+           the phantom batch is made on the host);
 - kernels: holds each kernel against its plain PyTorch version on the card at
            the main path's shape (512 x 256 x 256 float32, with exact zeros and
            NaNs planted), and on the scalar, misaligned and float64 paths;
@@ -15,8 +16,15 @@ Phases, each timed and each fatal on failure:
            launch count set to 0 just before and read just after; checks the
            fused solves against the unfused ones, PSNR against the zero-filled
            start, and a float64 solve on the card against a numpy reference;
+- fused_iteration: holds the fused ADMM-L1 iteration (three launches of
+           ``csrc/admm_iteration.cu``) against its plain version at 512 x 256
+           x 256 and 3 x 128 x 256, from the scenario's initial state and its
+           state after 10 iterations, with a NaN planted in one image; then
+           drives ``admm_l1_fused_kernel`` at 512 x 256 x 50 with the launch
+           count set to 0 just before and read just after, against the
+           unfused matmul solver and the fused fft solve;
 - timing:  CUDA-event medians of the solves and of each kernel against its
-           plain version and its memory bound.
+           plain version and its bound (memory or operations).
 
 Prints the card's name and power limit (nvidia-smi), one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``. Exits
@@ -38,6 +46,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B, H, W, ITERS = 512, 256, 256, 50
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+FUSED_ATOL = 1e-5  # fused step vs plain: 256-term float32 sums, FMA vs cuBLAS; soft is 1-Lipschitz
 # Operations per element of each tail (adds, multiplies, compares), and the
 # float planes each moves (inputs read once, outputs written once).
 TAILS = {
@@ -45,6 +54,8 @@ TAILS = {
     "cnc_tail": dict(flops=19, planes=5, replaces="pnp_admm_cnc_mri_tpu/ops/pallas_kernels.py:119"),
 }
 SOURCE = "pnp_admm_cnc_mri_torch/csrc/admm_tail.cu"
+FUSED_SOURCE = "pnp_admm_cnc_mri_torch/csrc/admm_iteration.cu"
+FUSED_REPLACES = "pnp_admm_cnc_mri_tpu/ops/pallas_dc.py:83"
 _T0 = time.perf_counter()
 
 
@@ -129,7 +140,7 @@ def main() -> dict:
     sys.path.insert(0, ROOT)
     from pnp_admm_cnc_mri_torch import ADMM_CNC_DEFAULT, ADMM_L1_DEFAULT, ADMMConfig
     from pnp_admm_cnc_mri_torch.data import masks, noise, phantom
-    from pnp_admm_cnc_mri_torch.ops import fourier, metrics, tail_kernels
+    from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, metrics, tail_kernels
     from pnp_admm_cnc_mri_torch.solvers import admm
 
     smi = subprocess.run(
@@ -140,27 +151,31 @@ def main() -> dict:
     dev = torch.device("cuda")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    # -- build (nvcc in a thread) while the inputs are made on the host ------
+    # -- build (one nvcc per library, in threads) while the inputs are made ---
     t = time.perf_counter()
     built: dict = {}
 
-    def build():
+    def build(name, load):
         t_b = time.perf_counter()
         try:
-            tail_kernels.load_library()
-            built["s"] = time.perf_counter() - t_b
+            load()
+            built[name] = time.perf_counter() - t_b
         except BaseException as e:  # re-raised in the main thread below
-            built["err"] = e
+            built[name] = e
 
-    th = threading.Thread(target=build)
-    th.start()
+    threads = [threading.Thread(target=build, args=(name, mod.load_library))
+               for name, mod in (("admm_tail", tail_kernels), ("admm_iteration", fused_dc))]
+    for th in threads:
+        th.start()
     img_np = phantom.mri_phantoms(B, H, seed=0)
     mask_np = masks.random_mask((H, W), fraction=0.3, seed=1)
     noise_np = noise.synth_noise((H, W), std=3.0, seed=2).astype(np.complex64)
-    th.join()
-    if "err" in built:
-        raise built["err"]
-    log(f"build: nvcc {built['s']:.1f} s; inputs made alongside")
+    for th in threads:
+        th.join()
+    for v in built.values():
+        if isinstance(v, BaseException):
+            raise v
+    log("build: " + ", ".join(f"nvcc {k} {v:.1f} s" for k, v in built.items()) + " (in parallel); inputs made alongside")
     phase("build", t)
 
     # -- kernels against their plain versions ---------------------------------
@@ -248,6 +263,90 @@ def main() -> dict:
     log(f"solve: launches {launches}; quality {json.dumps(quality)}; f64 vs numpy {err_s:.3g}")
     phase("solve", t)
 
+    # -- the fused iteration: kernel against its plain version, then its path --
+    t = time.perf_counter()
+    cfg_l1 = ADMM_L1_DEFAULT
+    thr = cfg_l1.rho * cfg_l1.lam
+    cfg_10 = ADMMConfig(iter_num=10, lam=cfg_l1.lam, rho=cfg_l1.rho)
+    h3 = 128
+    y3 = fourier.observe(img[:3, :h3].contiguous(), mask[:h3].contiguous(),
+                         torch.from_numpy(noise_np[:h3].copy()).to(dev))
+    fused_err = 0.0
+    steps = {}
+    for tag, (ys, ms) in {"512x256x256": (y, mask), "3x128x256": (y3, mask[:h3].contiguous())}.items():
+        a_s, c_s = fourier.rfft_blend_fields(ys, ms, cfg_l1.rho)
+        step = fused_dc.make_fused_iteration(a_s, c_s.real.contiguous(), c_s.imag.contiguous(),
+                                             *ms.shape, thr)
+        fields = (step.fields.a_half, step.fields.cr, step.fields.ci, thr, step.fields.mats)
+        steps[tag] = step, fields
+        init = admm.init_state(ys)
+        later = admm.admm_l1(ys, ms, cfg_10, dc_method="fft")[0]
+        for state_tag, (z0, w0) in (("init", (init.z, init.w)), ("after 10 iterations", (later.z, later.w))):
+            got = step(z0, w0)
+            ref = fused_dc.fused_iteration_plain(z0, w0, *fields)
+            for name, a_, r_ in zip(("z'", "w'"), got, ref):
+                check(bool(torch.isfinite(a_).all()), f"fused_iteration {tag} {state_tag}: non-finite {name}")
+                e = float((a_ - r_).abs().max())
+                check(e < FUSED_ATOL, f"fused_iteration {tag} {state_tag}: {name} max abs error {e}")
+                fused_err = max(fused_err, e)
+            again = step(z0, w0)
+            check(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)),
+                  f"fused_iteration {tag} {state_tag}: two launches differ")
+    # a NaN in image 7 fills that image, and only it, in both versions
+    step, fields = steps["512x256x256"]
+    a_s, cr_s, ci_s = fields[:3]
+    init = admm.init_state(y)
+    z_nan = init.z.clone()
+    z_nan[7, 100, 100] = float("nan")
+    got, ref = step(z_nan, init.w), fused_dc.fused_iteration_plain(z_nan, init.w, *fields)
+    others = torch.arange(B, device=dev) != 7
+    for name, a_, r_ in zip(("z'", "w'"), got, ref):
+        check(bool(torch.isnan(a_[7]).all() and torch.isnan(r_[7]).all()),
+              f"fused_iteration: {name} of the image with a NaN is not all NaN")
+        e = float((a_[others] - r_[others]).abs().max())
+        check(e < FUSED_ATOL, f"fused_iteration with a NaN in image 7: {name} max abs error {e} elsewhere")
+    for bad, what in ((lambda: step(init.z.double(), init.w.double()), "a float64 state"),
+                      (lambda: fused_dc.make_fused_iteration(a_s.double(), cr_s.double(), ci_s.double(),
+                                                             H, W, thr), "float64 fields"),
+                      (lambda: fused_dc.make_fused_iteration(a_s[:, :-1], cr_s[..., :-1], ci_s[..., :-1],
+                                                             H, W - 1, thr), "an odd W")):
+        try:
+            bad()
+        except (TypeError, ValueError):
+            pass
+        else:
+            raise AssertionError(f"fused_iteration took {what}")
+    log(f"fused_iteration: max abs error {fused_err:.3g} against the plain version "
+        f"(512x256x256 and 3x128x256, initial state and after 10 iterations); NaN stays in its image; "
+        f"launches bitwise repeatable; float64 and odd W refused")
+    # the path: admm_l1_fused_kernel at 512 x 256 x 256, 50 iterations
+    torch.cuda.synchronize()
+    tail_kernels.reset_launches()
+    fused_dc.reset_launches()
+    x_k, z_k, w_k = fused_dc.admm_l1_fused_kernel(y, mask, cfg_l1)
+    torch.cuda.synchronize()
+    launches["fused_iteration"] = fused_dc.fused_iteration.launches
+    check(launches["fused_iteration"] == ITERS - 1, f"fused iterations on the path: {launches['fused_iteration']}")
+    check(tail_kernels.l1_tail.launches == 0 and tail_kernels.cnc_tail.launches == 0,
+          "admm_l1_fused_kernel launched a tail kernel")
+    check(tuple(x_k.shape) == (B, H, W) and x_k.dtype == torch.float32, f"x is {x_k.dtype} {tuple(x_k.shape)}")
+    check(bool(torch.isfinite(x_k).all()), "admm_l1_fused_kernel: non-finite output")
+    ref_x = admm.admm_l1(y, mask, cfg_l1, fused=False, dc_method="matmul")[0].x
+    d = (x_k - ref_x).abs()
+    check(float(d.max()) < 5e-3 and float(d.mean()) < 1e-5,
+          f"admm_l1_fused_kernel vs unfused matmul solver: max {float(d.max())} mean {float(d.mean())}")
+    p = metrics.psnr(x_k * 255.0, img * 255.0)
+    check(bool(torch.isfinite(p).all()) and bool((p > zf_psnr).all()),
+          f"admm_l1_fused_kernel: PSNR {float(p.min())} not above the zero-filled PSNR on every image")
+    dp = float(p.mean()) - quality["admm_l1"]["psnr_db"]
+    check(abs(dp) < 0.05, f"admm_l1_fused_kernel mean PSNR {float(p.mean())} vs fft solve: {dp} dB")
+    quality["admm_l1_fused_kernel"] = {"psnr_db": float(p.mean()), "vs_matmul_max": float(d.max()),
+                                       "vs_matmul_mean": float(d.mean()), "vs_fft_psnr_db": dp}
+    del ref_x, d, z_nan, got, ref, init, later, y3, steps
+    log(f"fused_iteration: launches {launches['fused_iteration']}; "
+        f"quality {json.dumps(quality['admm_l1_fused_kernel'])}")
+    phase("fused_iteration", t)
+
     # -- timing ----------------------------------------------------------------
     t = time.perf_counter()
     rates = {}
@@ -274,6 +373,34 @@ def main() -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
         })
+    # the fused iteration at the path's shape, from the scenario's initial state
+    ms = cuda_ms(lambda: fused_dc.admm_l1_fused_kernel(y, mask, cfg_l1), reps=5)
+    rates["admm_l1_fused_kernel"] = {"solve_ms": ms, "image_iters_per_s": B * ITERS / (ms / 1e3)}
+    init = admm.init_state(y)
+    z0, w0 = init.z, init.w
+    it = step.fields
+    k3_ms = cuda_ms(lambda: step(z0, w0), inner=5)
+    k3_plain_ms = cuda_ms(lambda: fused_dc.fused_iteration_plain(z0, w0, *fields), inner=5)
+    z1, w1 = torch.empty_like(z0), torch.empty_like(z0)
+    stages = {name.split("_")[2]: cuda_ms(lambda: fused_dc.launch(name, dev, *args), inner=5)
+              for name, args in fused_dc.stage_launches(it, z0, w0, z1, w1)}
+    wh = W // 2 + 1
+    # operations of the twelve products: rows 2 x (H W Wh), columns 8 x (H H Wh),
+    # synthesis 2 x (H Wh W), two flops a multiply-add; bytes: z, w in, z', w'
+    # out, Cr, Ci in, and the constants (A, E, F, ch, sh) once
+    k3_flops = B * (8 * H * W * wh + 16 * H * H * wh)
+    k3_bytes = 4 * (4 * B * H * W + 2 * B * H * wh + H * wh + 2 * W * 2 * wh + 2 * H * H)
+    k3_bytes_ms, k3_ops_ms = k3_bytes / HBM_BYTES_PER_S * 1e3, k3_flops / FP32_FLOPS * 1e3
+    log(f"timing: fused_iteration {k3_ms:.4f} ms per step (plain {k3_plain_ms:.4f} ms; stages "
+        f"{json.dumps(stages)}; bound {max(k3_bytes_ms, k3_ops_ms):.4f} ms: "
+        f"{k3_flops / 1e9:.1f} GFLOP, {k3_bytes / 1e9:.3f} GB; strip {it.strip})")
+    kernels.append({
+        "name": "fused_iteration", "route": "cuda", "source": FUSED_SOURCE, "replaces": FUSED_REPLACES,
+        "launches": launches["fused_iteration"], "max_abs_err": fused_err,
+        "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": max(k3_bytes_ms, k3_ops_ms),
+        "bound_by": "bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
+        "library_ms": None,
+    })
     log(f"timing: {json.dumps(rates)}")
     phase("timing", t)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,7 +3,7 @@
 A source ``csrc/<name>.cu`` becomes ``_build/lib<name>.so`` (``_build/``
 is git-ignored) at first use, with a plain C interface that the wrappers
 load through ctypes. The library is rebuilt when the hash of the source and
-the flags changes (kept in ``_build/lib<name>.sha256``).
+its own flags changes (kept in ``_build/lib<name>.sha256``).
 """
 
 from __future__ import annotations
@@ -18,13 +18,22 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-# --fmad=false: no multiply-add contraction, so the kernels round where
-# their plain PyTorch versions round (they are compared bit for bit).
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# Flags of one source beyond NVCC_FLAGS. admm_tail: --fmad=false, no
+# multiply-add contraction, so its kernels round where their plain PyTorch
+# versions round (they are compared bit for bit). admm_iteration keeps the
+# contraction: its products are held to a tolerance, and split multiply-adds
+# would roughly halve their rate.
+SOURCE_FLAGS = {"admm_tail": ("--fmad=false",)}
 NVCC_TIMEOUT_S = 600
+
+
+def flags(name: str) -> tuple:
+    """nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
 def nvcc() -> str:
@@ -45,14 +54,15 @@ def build(name: str) -> Path:
     """Path of ``lib<name>.so``, compiling ``csrc/<name>.cu`` if it is
     missing or stale. Raises with nvcc's output if the compile fails."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    cflags = flags(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(cflags).encode()).hexdigest()
     lib = BUILD_DIR / f"lib{name}.so"
     stamp = BUILD_DIR / f"lib{name}.sha256"
     if lib.is_file() and stamp.is_file() and stamp.read_text() == digest:
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc(), *cflags, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

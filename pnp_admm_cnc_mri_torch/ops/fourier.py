@@ -130,27 +130,12 @@ def matmul_irfft2(yr: torch.Tensor, yi: torch.Tensor, h: int, w: int, mats=None)
     return ((xr * wk) @ cw[:wh, :] - (xi * wk) @ sw[:wh, :]) / w
 
 
-def make_rfft_data_consistency(y: torch.Tensor, mask: torch.Tensor, rho, method: str = "fft"):
-    """Half-spectrum (rfft) data-consistency solve: half the FFT work.
-
-    Only the real part of ``ifft2(F)`` survives, so only the Hermitian part
-    of the blended spectrum matters. On the rfft half-grid it is
-
-        H = A .* V_half + C,
-        A = (2 - m - m~)/2 + La2 (m + m~) / (2 (1 + La2))        (real)
-        C = (m .* y + m~ .* conj(y(-k))) / (2 (1 + La2))         (complex)
-
-    with ``m~(k) = m(-k)``. A and C are computed once; each iteration is
-    rfft2, one multiply-add and irfft2. ``method='matmul'`` runs the
-    transforms as matrix products (``matmul_rfft2``/``matmul_irfft2``,
-    under ``full_precision_matmul``); ``'auto'`` means ``'fft'`` in this
-    package.
-
-    Returns ``dc(v) -> x`` for real v of shape (..., H, W).
-    """
-    if method not in DC_METHODS:
-        raise ValueError(f"unknown dc_method {method!r}; expected one of {DC_METHODS}")
-    h, w = mask.shape[-2:]
+def rfft_blend_fields(y: torch.Tensor, mask: torch.Tensor, rho):
+    """The blend fields ``(A, C)`` of the half-spectrum solve on the rfft
+    half-grid (closed form in ``make_rfft_data_consistency``): A real, of
+    the mask's shape with W//2+1 columns; C complex, of y's. Both in y's
+    precision, contiguous."""
+    w = mask.shape[-1]
     la2 = 1.0 / (2.0 * rho)
     # sampled means mask != 0, and y is read only at sampled entries (zero it
     # elsewhere so NaN or garbage there cannot leak in)
@@ -163,8 +148,31 @@ def make_rfft_data_consistency(y: torch.Tensor, mask: torch.Tensor, rho, method:
     half = w // 2 + 1
     a_full = (2.0 - m - m_neg) / 2.0 + la2 * (m + m_neg) / (2.0 * (1.0 + la2))
     c_full = (m * y + m_neg * y_neg_conj) / (2.0 * (1.0 + la2))
-    a_half = a_full[..., :half].contiguous()
-    c_half = c_full[..., :half].contiguous()
+    return a_full[..., :half].contiguous(), c_full[..., :half].contiguous()
+
+
+def make_rfft_data_consistency(y: torch.Tensor, mask: torch.Tensor, rho, method: str = "fft"):
+    """Half-spectrum (rfft) data-consistency solve: half the FFT work.
+
+    Only the real part of ``ifft2(F)`` survives, so only the Hermitian part
+    of the blended spectrum matters. On the rfft half-grid it is
+
+        H = A .* V_half + C,
+        A = (2 - m - m~)/2 + La2 (m + m~) / (2 (1 + La2))        (real)
+        C = (m .* y + m~ .* conj(y(-k))) / (2 (1 + La2))         (complex)
+
+    with ``m~(k) = m(-k)`` (``rfft_blend_fields``). A and C are computed once; each iteration is
+    rfft2, one multiply-add and irfft2. ``method='matmul'`` runs the
+    transforms as matrix products (``matmul_rfft2``/``matmul_irfft2``,
+    under ``full_precision_matmul``); ``'auto'`` means ``'fft'`` in this
+    package.
+
+    Returns ``dc(v) -> x`` for real v of shape (..., H, W).
+    """
+    if method not in DC_METHODS:
+        raise ValueError(f"unknown dc_method {method!r}; expected one of {DC_METHODS}")
+    h, w = mask.shape[-2:]
+    a_half, c_half = rfft_blend_fields(y, mask, rho)
 
     if method == "matmul":
         dt = y.real.dtype

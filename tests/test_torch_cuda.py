@@ -1,4 +1,5 @@
-"""CUDA tail kernels against their plain PyTorch versions, on the card.
+"""CUDA kernels (the ADMM tails and the fused iteration) against their
+plain PyTorch versions, on the card.
 
 These tests need a CUDA device and nvcc, and skip without them. The file
 imports no JAX, so it also runs on a machine without it:
@@ -6,10 +7,11 @@ imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
-from pnp_admm_cnc_mri_torch.ops import tail_kernels
+from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, tail_kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +78,65 @@ def test_mixed_devices_raise(cuda):
     x = torch.zeros(2, 8, 8, device=cuda)
     with pytest.raises(ValueError):
         tail_kernels.l1_tail(x, x, x.cpu(), C_L1)
+
+
+# The fused step against its plain version: 256-term float32 sums, FMA
+# contraction in the kernel against cuBLAS's products; soft is 1-Lipschitz.
+FUSED_ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def cuda_iteration(cuda):
+    fused_dc.load_library()
+    return cuda
+
+
+def _fused_case(device, b, h, w, seed=0):
+    """Image-scale state and the blend fields of a masked, noisy scenario."""
+    rng = np.random.default_rng(seed)
+    img = rng.random((b, h, w))
+    mask = (rng.random((h, w)) < 0.3).astype(np.float32)
+    noise = 3.0 * (rng.normal(size=(h, w)) + 1j * rng.normal(size=(h, w)))
+    y = torch.from_numpy((np.fft.fft2(img) * mask + noise).astype(np.complex64)).to(device)
+    a, c = fourier.rfft_blend_fields(y, torch.from_numpy(mask).to(device), 0.015)
+    z = torch.from_numpy(img.astype(np.float32)).to(device)
+    wd = torch.from_numpy((0.01 * rng.normal(size=(b, h, w))).astype(np.float32)).to(device)
+    return z, wd, (a, c.real.contiguous(), c.imag.contiguous())
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 256), (3, 128, 256), (2, 300, 256), (5, 8, 16)])
+def test_fused_iteration_matches_plain(cuda_iteration, shape):
+    b, h, w = shape
+    z, wd, fields = _fused_case(cuda_iteration, b, h, w)
+    step = fused_dc.make_fused_iteration(*fields, h, w, C_L1)
+    before = fused_dc.fused_iteration.launches
+    got = step(z, wd)
+    assert fused_dc.fused_iteration.launches == before + 1
+    ref = fused_dc.fused_iteration_plain(z, wd, *fields, C_L1)
+    for a, r in zip(got, ref):
+        assert float((a - r).abs().max()) < FUSED_ATOL
+    again = step(z, wd)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))  # no atomics: bitwise repeatable
+
+
+def test_fused_iteration_keeps_a_nan_in_its_image(cuda_iteration):
+    z, wd, fields = _fused_case(cuda_iteration, 9, 64, 64)
+    z[7, 10, 20] = float("nan")
+    step = fused_dc.make_fused_iteration(*fields, 64, 64, C_L1)
+    got = step(z, wd)
+    ref = fused_dc.fused_iteration_plain(z, wd, *fields, C_L1)
+    for a, r in zip(got, ref):
+        assert torch.isnan(a[7]).all() and torch.isnan(r[7]).all()
+        others = [i for i in range(9) if i != 7]
+        assert float((a[others] - r[others]).abs().max()) < FUSED_ATOL
+
+
+def test_fused_iteration_refuses_float64_and_odd_width(cuda_iteration):
+    z, wd, fields = _fused_case(cuda_iteration, 2, 16, 32)
+    step = fused_dc.make_fused_iteration(*fields, 16, 32, C_L1)
+    with pytest.raises(TypeError):
+        step(z.double(), wd.double())
+    with pytest.raises(TypeError):
+        fused_dc.make_fused_iteration(*(f.double() for f in fields), 16, 32, C_L1)
+    with pytest.raises(ValueError, match="even W"):
+        fused_dc.make_fused_iteration(fields[0][:, :-1], fields[1][..., :-1], fields[2][..., :-1], 16, 31, C_L1)
