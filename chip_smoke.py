@@ -24,7 +24,7 @@ Phases, each timed and each fatal on failure:
            count set to 0 just before and read just after, against the
            unfused matmul solver and the fused fft solve;
 - timing:  CUDA-event medians of the solves and of each kernel against its
-           plain version and its bound (memory or operations).
+           plain version and its bound (bytes or operations).
 
 Prints the card's name and power limit (nvidia-smi), one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``. Exits
@@ -35,6 +35,7 @@ next to this file, or if any phase fails.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -385,15 +386,18 @@ def main() -> dict:
     stages = {name.split("_")[2]: cuda_ms(lambda: fused_dc.launch(name, dev, *args), inner=5)
               for name, args in fused_dc.stage_launches(it, z0, w0, z1, w1)}
     wh = W // 2 + 1
-    # operations of the twelve products: rows 2 x (H W Wh), columns 8 x (H H Wh),
-    # synthesis 2 x (H Wh W), two flops a multiply-add; bytes: z, w in, z', w'
-    # out, Cr, Ci in, and the constants (A, E, F, ch, sh) once
-    k3_flops = B * (8 * H * W * wh + 16 * H * H * wh)
-    k3_bytes = 4 * (4 * B * H * W + 2 * B * H * wh + H * wh + 2 * W * 2 * wh + 2 * H * H)
+    # the least work of the function: two half-spectrum FFTs (5 H W log2(H W)
+    # flops for both), the blend (4 a bin), v = z - w, |.|, soft and the dual
+    # (10 a pixel); bytes: z, w in, z', w' out, Cr, Ci in, A once
+    k3_flops = B * (5 * H * W * math.log2(H * W) + 4 * H * wh + 10 * H * W)
+    k3_bytes = 4 * (4 * B * H * W + 2 * B * H * wh + H * wh)
     k3_bytes_ms, k3_ops_ms = k3_bytes / HBM_BYTES_PER_S * 1e3, k3_flops / FP32_FLOPS * 1e3
+    # the floor of the dense-DFT design itself: its twelve products, rows
+    # 2 x (H W Wh), columns 8 x (H H Wh), synthesis 2 x (H Wh W), 2 flops each
+    dense_ms = B * (8 * H * W * wh + 16 * H * H * wh) / FP32_FLOPS * 1e3
     log(f"timing: fused_iteration {k3_ms:.4f} ms per step (plain {k3_plain_ms:.4f} ms; stages "
-        f"{json.dumps(stages)}; bound {max(k3_bytes_ms, k3_ops_ms):.4f} ms: "
-        f"{k3_flops / 1e9:.1f} GFLOP, {k3_bytes / 1e9:.3f} GB; strip {it.strip})")
+        f"{json.dumps(stages)}; bound {max(k3_bytes_ms, k3_ops_ms):.4f} ms: {k3_bytes / 1e9:.3f} GB, "
+        f"{k3_flops / 1e9:.2f} GFLOP; the dense products' own floor {dense_ms:.4f} ms; strip {it.strip})")
     kernels.append({
         "name": "fused_iteration", "route": "cuda", "source": FUSED_SOURCE, "replaces": FUSED_REPLACES,
         "launches": launches["fused_iteration"], "max_abs_err": fused_err,

@@ -13,11 +13,15 @@
 //   x  = |Re(I diag(wk) (cw + i sw)[:Wh, :])| / W,  wk = [1, 2, ..., 2, 1]
 //   z' = soft(x + w, thr),  w' = (w + x) - z'
 //
-// Bound: operations. Per image-iteration the twelve products cost
-// 202.9 MFLOP at 256 x 256 against about 1.3 MB of state and fields, so at
-// batch 512 a launch needs 103.9 GFLOP: 1.55 ms at the H100's 67 TFLOP/s of
-// float32 outside the tensor cores, where its 0.67 GB of traffic needs
-// only 0.20 ms at 3.35 TB/s.
+// Bound: bytes. The function itself needs only two half-spectrum FFTs, the
+// blend and the elementwise tail: about 6 MFLOP per 256 x 256
+// image-iteration (5 H W log2(H W) for the two transforms), 3.1 GFLOP a
+// launch at batch 512, 0.05 ms at the H100's 67 TFLOP/s of float32, while
+// reading z, w, Cr, Ci and writing z', w' moves 0.67 GB, 0.20 ms at
+// 3.35 TB/s. The dense-DFT formulation used here (as in the TPU kernel)
+// does far more work: its twelve products cost 202.9 MFLOP per
+// image-iteration, 103.9 GFLOP a launch, so this design cannot go below
+// 1.55 ms on the CUDA cores however well its products run.
 //
 // Design. The TPU kernel kept whole images and every intermediate in VMEM;
 // one 256 x 256 float32 image is already more than a block's 227 KB of
@@ -32,7 +36,9 @@
 //      Y = (ch - i sh) X, blends, and runs I = (ch + i sh) Hb / H as complex
 //      products against ch and sh (symmetric, so one tile layout serves
 //      both directions, and each tile element feeds four multiply-adds),
-//      writing Ir, Ii back over its own columns;
+//      writing Ir, Ii back over its own columns. S is 32, or 16 or 8
+//      where H is too tall for 32 in shared memory (H above 384 and 776
+//      on the H100; up to 1552);
 //   C (row_gemm<kSynthesis>) the product [Ir | Ii] F / W with
 //      F = [wk cw; -wk sw][:Wh, :] (2Wh x W; wk scales by 1 or 2 exactly),
 //      then |.|, soft and the dual, with w read again.
@@ -42,11 +48,10 @@
 // cp.async in B), a small output tile per thread (8 x 6 in A; 8 x 4
 // complex in B at 32 columns a strip; 8 x 8 in C), sums in registers, one
 // owner per output and no atomics, so a launch is deterministic. Nothing is
-// done yet about the operation bound itself, and the stages run at 28 to
-// 38% of it (PERF.md): later work moves the products to the tensor cores
-// as 3xTF32 wgmma with an accuracy check, and keeps a whole iteration in
-// one launch with the intermediates in a cluster's distributed shared
-// memory.
+// done yet about the products' own floor, and the stages run at 28 to 38%
+// of it (PERF.md): later work moves the products to the tensor cores as
+// 3xTF32 wgmma with an accuracy check, and keeps a whole iteration in one
+// launch with the intermediates in a cluster's distributed shared memory.
 //
 // Numerics: built without --fmad=false (the products contract to FMAs and
 // are held to a tolerance, not bit for bit). The divisions by H and W come
@@ -432,6 +437,21 @@ int launch_columns(const ColArgs& p, cudaStream_t s) {
   return column_tm(p.h) == 4 ? launch_columns_tm<S, 4>(p, s) : launch_columns_tm<S, 8>(p, s);
 }
 
+// The widest strip (32, 16 or 8 columns) whose shared memory fits a block of
+// the current device: a wider strip reads the DFT matrices fewer times.
+// Returns 0 if none fits, or a negative cudaError if the device query failed.
+int column_strip_width(int h) {
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  constexpr int kStrips[] = {32, 16, 8};
+  for (int s : kStrips) {
+    if (column_smem(h, s) <= static_cast<size_t>(limit)) return s;
+  }
+  return 0;
+}
+
 template <int MODE, int BN, int TN, int NV, int MIN_BLOCKS>
 int launch_rows(const RowArgs& p, cudaStream_t s) {
   const int n = MODE == kForward ? 2 * p.wh : p.width;
@@ -444,9 +464,9 @@ int launch_rows(const RowArgs& p, cudaStream_t s) {
 
 extern "C" {
 
-// Shared memory (bytes) the column stage needs for H rows and a strip of s
-// columns; the wrapper picks the widest strip that fits.
-int64_t admm_iteration_column_smem(int h, int s) { return static_cast<int64_t>(column_smem(h, s)); }
+// The strip width the column stage takes for H rows on the current device,
+// 0 if H is too tall for its shared memory, or a negative cudaError.
+int admm_iteration_column_strip(int h) { return column_strip_width(h); }
 
 // Stage A: Xr, Xi (rows x Wh each) from z, w (rows x W) and E (W x 2Wh).
 int admm_iteration_rows_f32(const void* z, const void* w, const void* e, void* xr, void* xi,
@@ -461,13 +481,13 @@ int admm_iteration_rows_f32(const void* z, const void* w, const void* e, void* x
 // Stage B: the column transforms and the blend, in place over the planes.
 int admm_iteration_columns_f32(void* p0, void* p1, const void* ch, const void* sh, const void* a,
                                const void* cr, const void* ci, int64_t cols, int h, int wh,
-                               int strip, void* stream) {
+                               void* stream) {
   if (cols <= 0) return cudaSuccess;
   ColArgs p{static_cast<float*>(p0), static_cast<float*>(p1), static_cast<const float*>(ch),
             static_cast<const float*>(sh), static_cast<const float*>(a), static_cast<const float*>(cr),
             static_cast<const float*>(ci), cols, h, wh};
   auto s = static_cast<cudaStream_t>(stream);
-  switch (strip) {
+  switch (column_strip_width(h)) {
     case 32: return launch_columns<32>(p, s);
     case 16: return launch_columns<16>(p, s);
     case 8: return launch_columns<8>(p, s);

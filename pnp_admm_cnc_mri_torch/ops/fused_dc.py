@@ -35,15 +35,11 @@ _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     # z, w, E, Xr, Xi, rows, W, Wh, stream
     "admm_iteration_rows_f32": [_PTR] * 5 + [_I64, _INT, _INT, _PTR],
-    # planes 0/1, ch, sh, A, Cr, Ci, columns, H, Wh, strip, stream
-    "admm_iteration_columns_f32": [_PTR] * 7 + [_I64, _INT, _INT, _INT, _PTR],
+    # planes 0/1, ch, sh, A, Cr, Ci, columns, H, Wh, stream
+    "admm_iteration_columns_f32": [_PTR] * 7 + [_I64, _INT, _INT, _PTR],
     # Ir, Ii, F, w, z', w', thr, rows, W, Wh, stream
     "admm_iteration_synthesis_f32": [_PTR] * 6 + [ctypes.c_float, _I64, _INT, _INT, _PTR],
 }
-# Spectral columns per block of the column stage, the first that fits in
-# shared memory: a wider strip reads the DFT matrices fewer times.
-STRIPS = (32, 16, 8)
-SMEM_LIMIT = 232448  # bytes of shared memory a block can have on sm_90
 
 
 def load_library() -> ctypes.CDLL:
@@ -55,8 +51,8 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.admm_iteration_column_smem.argtypes = [_INT, _INT]
-        lib.admm_iteration_column_smem.restype = _I64
+        lib.admm_iteration_column_strip.argtypes = [_INT]
+        lib.admm_iteration_column_strip.restype = _INT
         _LIB = lib
     return _LIB
 
@@ -81,7 +77,7 @@ class FusedIteration:
     e: Optional[torch.Tensor] = None  # (W, 2Wh)  [cw | -sw][:, :Wh]
     f: Optional[torch.Tensor] = None  # (2Wh, W)  [wk cw; -wk sw][:Wh, :]
     planes: Optional[torch.Tensor] = None  # (2, ..., H, Wh) scratch
-    strip: int = 0
+    strip: int = 0  # spectral columns per block of the column stage, as the library picks it
 
 
 def fused_iteration_plain(z, w, a_half, cr, ci, thr, mats=None):
@@ -148,11 +144,12 @@ def make_fused_iteration(a_half, cr, ci, h: int, w: int, thr: float, device=None
             raise TypeError(f"the fused iteration runs in float32 on the card, got {dtype}")
         it.e, it.f = row_operands(cw, sw)
         it.planes = torch.empty((2, *cr.shape), dtype=dtype, device=device)
-        lib = load_library()
-        fits = [s for s in STRIPS if lib.admm_iteration_column_smem(h, s) <= SMEM_LIMIT]
-        if not fits:
+        with torch.cuda.device(device):
+            it.strip = load_library().admm_iteration_column_strip(h)
+        if it.strip < 0:
+            raise RuntimeError(f"device query failed: cudaError {-it.strip}")
+        if it.strip == 0:
             raise ValueError(f"H={h} is too tall for the column stage's shared memory")
-        it.strip = fits[0]
 
     def step(z, wdual):
         return fused_iteration(z, wdual, it)
@@ -202,7 +199,7 @@ def stage_launches(it: FusedIteration, z, w, z_new, w_new) -> list:
         t.data_ptr() for t in (it.e, it.f, *it.mats[2:], it.a_half, it.cr, it.ci, z, w, z_new, w_new))
     return [
         ("admm_iteration_rows_f32", (zp, wp, e, p0, p1, rows, it.w, wh)),
-        ("admm_iteration_columns_f32", (p0, p1, ch, sh, a, cr, ci, rows // it.h * wh, it.h, wh, it.strip)),
+        ("admm_iteration_columns_f32", (p0, p1, ch, sh, a, cr, ci, rows // it.h * wh, it.h, wh)),
         ("admm_iteration_synthesis_f32", (p0, p1, f, wp, zo, wo, it.thr, rows, it.w, wh)),
     ]
 

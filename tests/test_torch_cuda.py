@@ -104,7 +104,8 @@ def _fused_case(device, b, h, w, seed=0):
     return z, wd, (a, c.real.contiguous(), c.imag.contiguous())
 
 
-@pytest.mark.parametrize("shape", [(4, 256, 256), (3, 128, 256), (2, 300, 256), (5, 8, 16)])
+@pytest.mark.parametrize(
+    "shape", [(4, 256, 256), (3, 128, 256), (2, 300, 256), (5, 8, 16), (2, 512, 64), (2, 1024, 64)])
 def test_fused_iteration_matches_plain(cuda_iteration, shape):
     b, h, w = shape
     z, wd, fields = _fused_case(cuda_iteration, b, h, w)
@@ -117,6 +118,20 @@ def test_fused_iteration_matches_plain(cuda_iteration, shape):
         assert float((a - r).abs().max()) < FUSED_ATOL
     again = step(z, wd)
     assert all(torch.equal(a, r) for a, r in zip(got, again))  # no atomics: bitwise repeatable
+
+
+@pytest.mark.parametrize("h, strip", [(128, 32), (384, 32), (385, 16), (512, 16), (776, 16), (777, 8), (1024, 8)])
+def test_column_strip_narrows_as_height_grows(cuda_iteration, h, strip):
+    # the library takes the widest strip whose shared memory fits a block
+    # (227 KB on the H100), so the matching cases above run all three widths
+    _, _, fields = _fused_case(cuda_iteration, 1, h, 16)
+    assert fused_dc.make_fused_iteration(*fields, h, 16, C_L1).fields.strip == strip
+
+
+def test_fused_iteration_refuses_too_tall_images(cuda_iteration):
+    _, _, fields = _fused_case(cuda_iteration, 1, 1553, 16)
+    with pytest.raises(ValueError):
+        fused_dc.make_fused_iteration(*fields, 1553, 16, C_L1)
 
 
 def test_fused_iteration_keeps_a_nan_in_its_image(cuda_iteration):
