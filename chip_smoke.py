@@ -5,26 +5,34 @@
 
 Phases, each timed and each fatal on failure:
 
-- build:   compiles the port's two CUDA libraries from
+- build:   compiles the port's three CUDA libraries from
            ``pnp_admm_cnc_mri_torch/csrc``, one nvcc each, in parallel (while
            the phantom batch is made on the host);
-- kernels: holds each kernel against its plain PyTorch version on the card at
-           the main path's shape (512 x 256 x 256 float32, with exact zeros and
-           NaNs planted), and on the scalar, misaligned and float64 paths;
+- kernels: holds each tail kernel against its plain PyTorch version on the
+           card at the main path's shape (512 x 256 x 256 float32, with exact
+           zeros and NaNs planted), and on the scalar, misaligned and float64
+           paths;
 - solve:   drives the main path, ``admm_l1`` and ``admm_cnc`` with
            ``fused=True`` at 256 x 256, batch 512, 50 iterations, with every
            launch count set to 0 just before and read just after; checks the
            fused solves against the unfused ones, PSNR against the zero-filled
            start, and a float64 solve on the card against a numpy reference;
-- fused_iteration: holds the fused ADMM-L1 iteration (three launches of
-           ``csrc/admm_iteration.cu``) against its plain version at 512 x 256
-           x 256 and 3 x 128 x 256, from the scenario's initial state and its
-           state after 10 iterations, with a NaN planted in one image; then
-           drives ``admm_l1_fused_kernel`` at 512 x 256 x 50 with the launch
-           count set to 0 just before and read just after, against the
-           unfused matmul solver and the fused fft solve;
-- timing:  CUDA-event medians of the solves and of each kernel against its
-           plain version and its bound (bytes or operations).
+- fused_iteration: holds both designs of the fused ADMM-L1 iteration (the
+           one-launch cluster kernel of ``csrc/admm_iteration_cluster.cu`` and
+           the three-launch strip kernels of ``csrc/admm_iteration.cu``)
+           against the plain version at 512 x 256 x 256 and 3 x 128 x 256,
+           from the scenario's initial state and its state after 10
+           iterations, at 2 x 512 x 64 and 2 x 1024 x 64 (errors printed), and
+           the strip design at 2 x 300 x 256, which only it takes; a NaN
+           planted in one image. Then drives ``admm_l1_fused_kernel`` at 512
+           x 256 x 256 x 50 with the counts set to 0 just before and read just
+           after (49 cluster launches, 0 strip launches: the strip kernels
+           are on the path only for shapes the cluster kernel does not take),
+           against the unfused matmul solver and the fused fft solve, and at
+           2 x 300 x 256 x 5 (4 strip launches);
+- timing:  CUDA-event medians of the solves, of each tail kernel against its
+           plain version and its bound, and of the two designs' steps and
+           the cuFFT path's iteration on the same state, in turns.
 
 Prints the card's name and power limit (nvidia-smi), one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``. Exits
@@ -56,6 +64,7 @@ TAILS = {
 }
 SOURCE = "pnp_admm_cnc_mri_torch/csrc/admm_tail.cu"
 FUSED_SOURCE = "pnp_admm_cnc_mri_torch/csrc/admm_iteration.cu"
+CLUSTER_SOURCE = "pnp_admm_cnc_mri_torch/csrc/admm_iteration_cluster.cu"
 FUSED_REPLACES = "pnp_admm_cnc_mri_tpu/ops/pallas_dc.py:83"
 _T0 = time.perf_counter()
 
@@ -164,8 +173,10 @@ def main() -> dict:
         except BaseException as e:  # re-raised in the main thread below
             built[name] = e
 
-    threads = [threading.Thread(target=build, args=(name, mod.load_library))
-               for name, mod in (("admm_tail", tail_kernels), ("admm_iteration", fused_dc))]
+    threads = [threading.Thread(target=build, args=(name, load))
+               for name, load in (("admm_tail", tail_kernels.load_library),
+                                  ("admm_iteration", fused_dc.load_library),
+                                  ("admm_iteration_cluster", fused_dc.load_cluster_library))]
     for th in threads:
         th.start()
     img_np = phantom.mri_phantoms(B, H, seed=0)
@@ -264,72 +275,125 @@ def main() -> dict:
     log(f"solve: launches {launches}; quality {json.dumps(quality)}; f64 vs numpy {err_s:.3g}")
     phase("solve", t)
 
-    # -- the fused iteration: kernel against its plain version, then its path --
+    # -- the fused iteration: both designs against their plain versions, then the path --
     t = time.perf_counter()
     cfg_l1 = ADMM_L1_DEFAULT
     thr = cfg_l1.rho * cfg_l1.lam
     cfg_10 = ADMMConfig(iter_num=10, lam=cfg_l1.lam, rho=cfg_l1.rho)
+    big = phantom.mri_phantoms(2, 1024, seed=5)
+
+    def scenario(b, h, w):
+        """k-space and mask of b phantoms cut to (h, w), with the main path's mask and noise recipe."""
+        m = torch.from_numpy(masks.random_mask((h, w), fraction=0.3, seed=1)).to(dev, torch.float32)
+        nz = torch.from_numpy(noise.synth_noise((h, w), std=3.0, seed=2).astype(np.complex64)).to(dev)
+        return fourier.observe(torch.from_numpy(big[:b, :h, :w].copy()).to(dev), m, nz), m
+
+    def make(ys, ms, design=None):
+        a_s, c_s = fourier.rfft_blend_fields(ys, ms, cfg_l1.rho)
+        return fused_dc.make_fused_iteration(a_s, c_s.real.contiguous(), c_s.imag.contiguous(),
+                                             *ms.shape, thr, design=design)
+
+    def plain_step(step, z0, w0, dtype=torch.float32):
+        f = step.fields
+        return fused_dc.fused_iteration_plain(z0.to(dtype), w0.to(dtype), f.a_half.to(dtype), f.cr.to(dtype),
+                                              f.ci.to(dtype), thr, None if dtype != torch.float32 else f.mats)
+
+    def held(step, z0, w0, what):
+        """Max abs errors of one step against the plain version in float64 and
+        in float32. The cluster design is held to the first (its FFTs are more
+        accurate than the plain version's dense float32 products, whose row 0
+        errs by up to 1.7e-5 at H = 1024), the strip design to the second (it
+        runs those products). Checks finiteness, the limit, bitwise repeats."""
+        got = step(z0, w0)
+        errs = {}
+        for ref_name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+            ref = plain_step(step, z0, w0, dtype)
+            errs[ref_name] = max(float((a_ - r_).abs().max()) for a_, r_ in zip(got, ref))
+        for name, a_ in zip(("z'", "w'"), got):
+            check(bool(torch.isfinite(a_).all()), f"fused_iteration {what}: non-finite {name}")
+        e = errs["f64" if step.fields.design == "cluster" else "f32"]
+        check(e < FUSED_ATOL, f"fused_iteration {what}: max abs error {e} against the plain version")
+        again = step(z0, w0)
+        check(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)), f"fused_iteration {what}: two launches differ")
+        return e, errs
+
     h3 = 128
     y3 = fourier.observe(img[:3, :h3].contiguous(), mask[:h3].contiguous(),
                          torch.from_numpy(noise_np[:h3].copy()).to(dev))
-    fused_err = 0.0
+    fused_err = dict.fromkeys(fused_dc.DESIGNS, 0.0)
     steps = {}
     for tag, (ys, ms) in {"512x256x256": (y, mask), "3x128x256": (y3, mask[:h3].contiguous())}.items():
-        a_s, c_s = fourier.rfft_blend_fields(ys, ms, cfg_l1.rho)
-        step = fused_dc.make_fused_iteration(a_s, c_s.real.contiguous(), c_s.imag.contiguous(),
-                                             *ms.shape, thr)
-        fields = (step.fields.a_half, step.fields.cr, step.fields.ci, thr, step.fields.mats)
-        steps[tag] = step, fields
         init = admm.init_state(ys)
         later = admm.admm_l1(ys, ms, cfg_10, dc_method="fft")[0]
-        for state_tag, (z0, w0) in (("init", (init.z, init.w)), ("after 10 iterations", (later.z, later.w))):
-            got = step(z0, w0)
-            ref = fused_dc.fused_iteration_plain(z0, w0, *fields)
-            for name, a_, r_ in zip(("z'", "w'"), got, ref):
-                check(bool(torch.isfinite(a_).all()), f"fused_iteration {tag} {state_tag}: non-finite {name}")
-                e = float((a_ - r_).abs().max())
-                check(e < FUSED_ATOL, f"fused_iteration {tag} {state_tag}: {name} max abs error {e}")
-                fused_err = max(fused_err, e)
-            again = step(z0, w0)
-            check(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)),
-                  f"fused_iteration {tag} {state_tag}: two launches differ")
-    # a NaN in image 7 fills that image, and only it, in both versions
-    step, fields = steps["512x256x256"]
-    a_s, cr_s, ci_s = fields[:3]
+        for design in fused_dc.DESIGNS:
+            step = make(ys, ms, design)
+            check(step.fields.design == design, f"{tag}: asked for {design}, got {step.fields.design}")
+            steps[tag, design] = step
+            for state_tag, (z0, w0) in (("init", (init.z, init.w)), ("after 10 iterations", (later.z, later.w))):
+                e, _ = held(step, z0, w0, f"{design} {tag} {state_tag}")
+                fused_err[design] = max(fused_err[design], e)
+        check(make(ys, ms).fields.design == "cluster", f"{tag}: the rule did not take the cluster design")
+    q_main = steps["512x256x256", "cluster"].fields.q
+    check(q_main == 8, f"Q at 256 x 256 is {q_main}")
+    # shapes that only the strip design takes (H not a power of two), and tall images
+    y300, m300 = scenario(2, 300, 256)
+    step300 = make(y300, m300)
+    check(step300.fields.design == "strips", f"2x300x256 took {step300.fields.design}")
+    init = admm.init_state(y300)
+    fused_err["strips"] = max(fused_err["strips"], held(step300, init.z, init.w, "strips 2x300x256")[0])
+    tall = {}
+    for hh in (512, 1024):
+        ys, ms = scenario(2, hh, 64)
+        init = admm.init_state(ys)
+        for design in fused_dc.DESIGNS:
+            e, tall[f"{design} 2x{hh}x64"] = held(make(ys, ms, design), init.z, init.w, f"{design} 2x{hh}x64")
+            fused_err[design] = max(fused_err[design], e)
+    log("fused_iteration: max abs errors at H = 512 and 1024 against the plain version in float64 and float32: "
+        + json.dumps(tall))
+    # a NaN in image 7 fills that image, and only it, in both designs and the plain version
     init = admm.init_state(y)
     z_nan = init.z.clone()
     z_nan[7, 100, 100] = float("nan")
-    got, ref = step(z_nan, init.w), fused_dc.fused_iteration_plain(z_nan, init.w, *fields)
     others = torch.arange(B, device=dev) != 7
-    for name, a_, r_ in zip(("z'", "w'"), got, ref):
-        check(bool(torch.isnan(a_[7]).all() and torch.isnan(r_[7]).all()),
-              f"fused_iteration: {name} of the image with a NaN is not all NaN")
-        e = float((a_[others] - r_[others]).abs().max())
-        check(e < FUSED_ATOL, f"fused_iteration with a NaN in image 7: {name} max abs error {e} elsewhere")
-    for bad, what in ((lambda: step(init.z.double(), init.w.double()), "a float64 state"),
+    for design in fused_dc.DESIGNS:
+        step = steps["512x256x256", design]
+        got = step(z_nan, init.w)
+        ref = plain_step(step, z_nan, init.w, torch.float64 if design == "cluster" else torch.float32)
+        for name, a_, r_ in zip(("z'", "w'"), got, ref):
+            check(bool(torch.isnan(a_[7]).all() and torch.isnan(r_[7]).all()),
+                  f"fused_iteration {design}: {name} of the image with a NaN is not all NaN")
+            e = float((a_[others] - r_[others]).abs().max())
+            check(e < FUSED_ATOL, f"fused_iteration {design} with a NaN in image 7: {name} max abs error {e} elsewhere")
+    a_s, cr_s, ci_s = (getattr(steps["512x256x256", "cluster"].fields, k) for k in ("a_half", "cr", "ci"))
+    for bad, what in ((lambda: steps["512x256x256", "cluster"](init.z.double(), init.w.double()), "a float64 state"),
                       (lambda: fused_dc.make_fused_iteration(a_s.double(), cr_s.double(), ci_s.double(),
                                                              H, W, thr), "float64 fields"),
                       (lambda: fused_dc.make_fused_iteration(a_s[:, :-1], cr_s[..., :-1], ci_s[..., :-1],
-                                                             H, W - 1, thr), "an odd W")):
+                                                             H, W - 1, thr), "an odd W"),
+                      (lambda: make(y300, m300, "cluster"), "the cluster design at H = 300")):
         try:
             bad()
         except (TypeError, ValueError):
             pass
         else:
             raise AssertionError(f"fused_iteration took {what}")
-    log(f"fused_iteration: max abs error {fused_err:.3g} against the plain version "
-        f"(512x256x256 and 3x128x256, initial state and after 10 iterations); NaN stays in its image; "
-        f"launches bitwise repeatable; float64 and odd W refused")
-    # the path: admm_l1_fused_kernel at 512 x 256 x 256, 50 iterations
+    log(f"fused_iteration: max abs error against the plain version {json.dumps(fused_err)} (cluster: the plain "
+        f"version in float64; strips: in float32; 512x256x256 and 3x128x256 from the initial state and after 10 "
+        f"iterations, 2x300x256 strips only, 2x512x64, 2x1024x64); Q {q_main} at 256x256; NaN stays in its image; "
+        f"launches bitwise repeatable; float64, odd W and the cluster design at H = 300 refused")
+    # the path: admm_l1_fused_kernel at 512 x 256 x 256, 50 iterations (the cluster design)
     torch.cuda.synchronize()
     tail_kernels.reset_launches()
     fused_dc.reset_launches()
     x_k, z_k, w_k = fused_dc.admm_l1_fused_kernel(y, mask, cfg_l1)
     torch.cuda.synchronize()
+    by_design = dict(fused_dc.fused_iteration.by_design)
     launches["fused_iteration"] = fused_dc.fused_iteration.launches
-    check(launches["fused_iteration"] == ITERS - 1, f"fused iterations on the path: {launches['fused_iteration']}")
+    check(by_design == {"cluster": ITERS - 1, "strips": 0} and launches["fused_iteration"] == ITERS - 1,
+          f"fused iterations on the path: {launches['fused_iteration']}, by design {by_design}")
     check(tail_kernels.l1_tail.launches == 0 and tail_kernels.cnc_tail.launches == 0,
           "admm_l1_fused_kernel launched a tail kernel")
+    launches.update({f"fused_iteration_{k}": v for k, v in by_design.items()})
     check(tuple(x_k.shape) == (B, H, W) and x_k.dtype == torch.float32, f"x is {x_k.dtype} {tuple(x_k.shape)}")
     check(bool(torch.isfinite(x_k).all()), "admm_l1_fused_kernel: non-finite output")
     ref_x = admm.admm_l1(y, mask, cfg_l1, fused=False, dc_method="matmul")[0].x
@@ -343,8 +407,19 @@ def main() -> dict:
     check(abs(dp) < 0.05, f"admm_l1_fused_kernel mean PSNR {float(p.mean())} vs fft solve: {dp} dB")
     quality["admm_l1_fused_kernel"] = {"psnr_db": float(p.mean()), "vs_matmul_max": float(d.max()),
                                        "vs_matmul_mean": float(d.mean()), "vs_fft_psnr_db": dp}
-    del ref_x, d, z_nan, got, ref, init, later, y3, steps
-    log(f"fused_iteration: launches {launches['fused_iteration']}; "
+    # the strip design's path: a shape only it takes, 5 iterations
+    cfg_5 = ADMMConfig(iter_num=5, lam=cfg_l1.lam, rho=cfg_l1.rho)
+    torch.cuda.synchronize()
+    fused_dc.reset_launches()
+    x300 = fused_dc.admm_l1_fused_kernel(y300, m300, cfg_5)[0]
+    torch.cuda.synchronize()
+    by_300 = dict(fused_dc.fused_iteration.by_design)
+    check(by_300 == {"cluster": 0, "strips": 4}, f"admm_l1_fused_kernel at 2x300x256: by design {by_300}")
+    d300 = float((x300 - admm.admm_l1(y300, m300, cfg_5, fused=False, dc_method="matmul")[0].x).abs().max())
+    check(d300 < 5e-3, f"admm_l1_fused_kernel at 2x300x256 vs unfused matmul solver: max {d300}")
+    del ref_x, d, z_nan, got, ref, init, later, y3, x300, big
+    log(f"fused_iteration: launches {launches['fused_iteration']} by design {json.dumps(by_design)} at "
+        f"512x256x256; {json.dumps(by_300)} at 2x300x256 (x within {d300:.3g} of the matmul solver); "
         f"quality {json.dumps(quality['admm_l1_fused_kernel'])}")
     phase("fused_iteration", t)
 
@@ -375,16 +450,30 @@ def main() -> dict:
             "library_ms": None,
         })
     # the fused iteration at the path's shape, from the scenario's initial state
-    ms = cuda_ms(lambda: fused_dc.admm_l1_fused_kernel(y, mask, cfg_l1), reps=5)
-    rates["admm_l1_fused_kernel"] = {"solve_ms": ms, "image_iters_per_s": B * ITERS / (ms / 1e3)}
+    for label, design in (("admm_l1_fused_kernel", None), ("admm_l1_fused_kernel_strips", "strips")):
+        ms = cuda_ms(lambda: fused_dc.admm_l1_fused_kernel(y, mask, cfg_l1, design=design),
+                     reps=5 if design is None else 3)
+        rates[label] = {"solve_ms": ms, "image_iters_per_s": B * ITERS / (ms / 1e3)}
     init = admm.init_state(y)
     z0, w0 = init.z, init.w
-    it = step.fields
-    k3_ms = cuda_ms(lambda: step(z0, w0), inner=5)
-    k3_plain_ms = cuda_ms(lambda: fused_dc.fused_iteration_plain(z0, w0, *fields), inner=5)
+    cluster_step, strip_step = steps["512x256x256", "cluster"], steps["512x256x256", "strips"]
+    dc = fourier.make_rfft_data_consistency(y, mask, cfg_l1.rho, method="fft")
+    # the yardstick: one iteration of admm_l1(fused=True), cuFFT and the l1_tail kernel
+    contenders = {
+        "cluster": lambda: cluster_step(z0, w0),
+        "strips": lambda: strip_step(z0, w0),
+        "cufft_iteration": lambda: tail_kernels.l1_tail(dc(z0 - w0), z0, w0, thr),
+    }
+    order = [*contenders, *reversed(contenders)]  # in turns: cluster, strips, cuFFT, cuFFT, strips, cluster
+    runs = {k: [] for k in contenders}
+    for k in order:
+        runs[k].append(cuda_ms(contenders[k], inner=5 if k != "strips" else 2))
+    step_ms = {k: statistics.mean(v) for k, v in runs.items()}
+    k3_plain_ms = cuda_ms(lambda: plain_step(cluster_step, z0, w0), inner=2)
     z1, w1 = torch.empty_like(z0), torch.empty_like(z0)
-    stages = {name.split("_")[2]: cuda_ms(lambda: fused_dc.launch(name, dev, *args), inner=5)
-              for name, args in fused_dc.stage_launches(it, z0, w0, z1, w1)}
+    stages = {name.split("_")[2]: cuda_ms(lambda: fused_dc.launch(name, dev, *args), inner=2)
+              for name, args in fused_dc.stage_launches(strip_step.fields, z0, w0, z1, w1)}
+    active = fused_dc.load_cluster_library().admm_iteration_cluster_active(H, W, q_main)
     wh = W // 2 + 1
     # the least work of the function: two half-spectrum FFTs (5 H W log2(H W)
     # flops for both), the blend (4 a bin), v = z - w, |.|, soft and the dual
@@ -392,19 +481,24 @@ def main() -> dict:
     k3_flops = B * (5 * H * W * math.log2(H * W) + 4 * H * wh + 10 * H * W)
     k3_bytes = 4 * (4 * B * H * W + 2 * B * H * wh + H * wh)
     k3_bytes_ms, k3_ops_ms = k3_bytes / HBM_BYTES_PER_S * 1e3, k3_flops / FP32_FLOPS * 1e3
-    # the floor of the dense-DFT design itself: its twelve products, rows
-    # 2 x (H W Wh), columns 8 x (H H Wh), synthesis 2 x (H Wh W), 2 flops each
+    k3_bound = max(k3_bytes_ms, k3_ops_ms)
+    # the floor of the strip design's dense DFT products: rows 2 x (H W Wh),
+    # columns 8 x (H H Wh), synthesis 2 x (H Wh W), 2 flops each
     dense_ms = B * (8 * H * W * wh + 16 * H * H * wh) / FP32_FLOPS * 1e3
-    log(f"timing: fused_iteration {k3_ms:.4f} ms per step (plain {k3_plain_ms:.4f} ms; stages "
-        f"{json.dumps(stages)}; bound {max(k3_bytes_ms, k3_ops_ms):.4f} ms: {k3_bytes / 1e9:.3f} GB, "
-        f"{k3_flops / 1e9:.2f} GFLOP; the dense products' own floor {dense_ms:.4f} ms; strip {it.strip})")
-    kernels.append({
-        "name": "fused_iteration", "route": "cuda", "source": FUSED_SOURCE, "replaces": FUSED_REPLACES,
-        "launches": launches["fused_iteration"], "max_abs_err": fused_err,
-        "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": max(k3_bytes_ms, k3_ops_ms),
-        "bound_by": "bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
-        "library_ms": None,
-    })
+    log(f"timing: fused_iteration per step at 512x256x256 (ms, two passes in turns): {json.dumps(runs)}; "
+        f"cluster {step_ms['cluster']:.4f} ms = {k3_bytes / step_ms['cluster'] / 1e6:.1f} GB/s, "
+        f"{k3_bound / step_ms['cluster']:.1%} of the {k3_bound:.4f} ms bound ({k3_bytes / 1e9:.3f} GB, "
+        f"{k3_flops / 1e9:.2f} GFLOP), Q {q_main}, {active} clusters resident; strips {step_ms['strips']:.4f} ms "
+        f"(stages {json.dumps(stages)}; strip {strip_step.fields.strip}; its dense products' floor "
+        f"{dense_ms:.4f} ms); cuFFT iteration {step_ms['cufft_iteration']:.4f} ms; plain {k3_plain_ms:.4f} ms")
+    for design, source in (("cluster", CLUSTER_SOURCE), ("strips", FUSED_SOURCE)):
+        kernels.append({
+            "name": f"fused_iteration_{design}", "route": "cuda", "source": source, "replaces": FUSED_REPLACES,
+            "launches": launches[f"fused_iteration_{design}"], "max_abs_err": fused_err[design],
+            "ms": step_ms[design], "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+            "bound_by": "bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
+            "library_ms": None,
+        })
     log(f"timing: {json.dumps(rates)}")
     phase("timing", t)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,11 @@
 // One whole ADMM-L1 iteration in three launches, for sm_90a (float32).
 //
 // Replaces the Pallas TPU kernel of pnp_admm_cnc_mri_tpu/ops/pallas_dc.py:
-// make_fused_iteration (:83, body _iteration_kernel :38). For a batch of
-// (H, W) images, W even, Wh = W/2 + 1, with the half-spectrum DFT done as
-// matrix products:
+// make_fused_iteration (:83, body _iteration_kernel :38) for the shapes that
+// csrc/admm_iteration_cluster.cu (one launch a step, FFTs in a cluster's
+// shared memory) does not take: H or W not a power of two, or a half
+// spectrum too large for a cluster. For a batch of (H, W) images, W even,
+// Wh = W/2 + 1, with the half-spectrum DFT done as matrix products:
 //
 //   v  = z - w
 //   X  = v (cw - i sw)[:, :Wh]                   rows, W -> Wh bins
@@ -47,11 +49,8 @@
 // shared memory, double-buffered (through registers in A and C, with
 // cp.async in B), a small output tile per thread (8 x 6 in A; 8 x 4
 // complex in B at 32 columns a strip; 8 x 8 in C), sums in registers, one
-// owner per output and no atomics, so a launch is deterministic. Nothing is
-// done yet about the products' own floor, and the stages run at 28 to 38%
-// of it (PERF.md): later work moves the products to the tensor cores as
-// 3xTF32 wgmma with an accuracy check, and keeps a whole iteration in one
-// launch with the intermediates in a cluster's distributed shared memory.
+// owner per output and no atomics, so a launch is deterministic. The stages
+// run at 28 to 38% of the products' own floor (PERF.md).
 //
 // Numerics: built without --fmad=false (the products contract to FMAs and
 // are held to a tolerance, not bit for bit). The divisions by H and W come
@@ -61,15 +60,19 @@
 //
 // Interface: plain C, called through ctypes, one entry point per stage.
 // Each launches on the given stream, does not synchronise, and returns
-// cudaGetLastError() (or the error of cudaFuncSetAttribute).
+// cudaGetLastError() (or the error of cudaFuncSetAttribute). The device's
+// shared-memory limit is read, and the column kernel's attribute set, once
+// per process and device.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxDevices = 64;
 constexpr int kBK = 8;   // depth of a product step
 constexpr int kTM = 8;   // output rows per thread
 
@@ -421,12 +424,41 @@ column_strip(ColArgs p) {
   }
 }
 
+// The current device's opt-in shared memory a block may use (bytes), read
+// once per process and device; a negative cudaError if the query failed.
+int device_smem_limit() {
+  static std::once_flag once[kMaxDevices];
+  static int limit[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return -static_cast<int>(cudaErrorInvalidDevice);
+  std::call_once(once[dev], [dev] {
+    const cudaError_t err = cudaDeviceGetAttribute(&limit[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) limit[dev] = -static_cast<int>(err);
+  });
+  return limit[dev];
+}
+
 template <int S, int TM>
 int launch_columns_tm(const ColArgs& p, cudaStream_t s) {
-  const size_t bytes = column_smem(p.h, S);
-  cudaError_t err = cudaFuncSetAttribute(column_strip<S, TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+  // the kernel's shared-memory limit, raised to the device's once per
+  // process and device (every strip width that column_strip_width picks fits it)
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t set_err[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  std::call_once(once[dev], [] {
+    int dev_now = 0;
+    cudaGetDevice(&dev_now);
+    const int limit = device_smem_limit();
+    set_err[dev_now] = limit < 0 ? static_cast<cudaError_t>(-limit)
+                                 : cudaFuncSetAttribute(column_strip<S, TM>,
+                                                        cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  });
+  if (set_err[dev] != cudaSuccess) return static_cast<int>(set_err[dev]);
+  const size_t bytes = column_smem(p.h, S);
   const int64_t blocks = (p.cols + S - 1) / S;
   column_strip<S, TM><<<static_cast<unsigned>(blocks), kThreads, bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -441,10 +473,8 @@ int launch_columns(const ColArgs& p, cudaStream_t s) {
 // the current device: a wider strip reads the DFT matrices fewer times.
 // Returns 0 if none fits, or a negative cudaError if the device query failed.
 int column_strip_width(int h) {
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return -static_cast<int>(err);
+  const int limit = device_smem_limit();
+  if (limit < 0) return limit;
   constexpr int kStrips[] = {32, 16, 8};
   for (int s : kStrips) {
     if (column_smem(h, s) <= static_cast<size_t>(limit)) return s;

@@ -3,17 +3,30 @@ plain PyTorch version, and the solver that runs through them.
 
 Replaces the Pallas kernel ``make_fused_iteration`` of the JAX package's
 ``ops/pallas_dc.py`` and its solver ``admm_l1_fused_kernel``. One step is
-``v = z - w``, the half-spectrum DFT as matrix products, the blend
-``A .* V + C``, the inverse DFT, ``x = |.|``, ``z' = soft(x + w, thr)`` and
-``w' = (w + x) - z'``. On the card it runs as three launches of
-``csrc/admm_iteration.cu`` (where their bound and design are stated), built
-with nvcc at first use and called through ctypes, over two scratch planes
-allocated once per ``make_fused_iteration``.
+``v = z - w``, the half-spectrum transform, the blend ``A .* V + C``, the
+inverse transform, ``x = |.|``, ``z' = soft(x + w, thr)`` and
+``w' = (w + x) - z'``. On the card it runs as one of two designs, each
+built with nvcc at first use and called through ctypes:
+
+- ``"cluster"`` (``csrc/admm_iteration_cluster.cu``): one launch a step,
+  one thread-block cluster of Q blocks per image, the transforms as FFTs in
+  shared memory. It takes H and W powers of two whose half spectrum fits
+  the cluster's shared memory (``cluster_size``).
+- ``"strips"`` (``csrc/admm_iteration.cu``): three launches a step, the
+  transforms as dense DFT products over two scratch planes allocated once
+  per ``make_fused_iteration``. It takes any H up to its shared-memory
+  limit and any even W.
+
+``make_fused_iteration`` takes the cluster design wherever it takes the
+shape, the strip design otherwise (``pick_design``), unless ``design=``
+names one. Both are hand-written kernels; neither catches the other's
+failure.
 
 The step takes the plain version for tensors on the CPU (any float dtype),
-launches the kernels for float32 CUDA tensors and raises for anything else.
-``fused_iteration.launches`` counts the fused iterations run on the card
-(three kernel launches each); the plain path does not count.
+launches its design's kernels for float32 CUDA tensors and raises for
+anything else. ``fused_iteration.launches`` counts the fused iterations run
+on the card and ``fused_iteration.by_design`` counts them per design; the
+plain path does not count.
 
 Only even W is taken: the TPU kernel weighs the last bin once, which is the
 Nyquist bin only for even W (``fourier.matmul_irfft2`` handles odd W).
@@ -22,6 +35,7 @@ Nyquist bin only for even W (``fourier.matmul_irfft2`` handles odd W).
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -31,7 +45,9 @@ from pnp_admm_cnc_mri_torch.ops import _build, fourier, prox
 from pnp_admm_cnc_mri_torch.solvers import admm
 
 _LIB = None
+_CLUSTER_LIB = None
 _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+DESIGNS = ("cluster", "strips")
 _SIGNATURES = {
     # z, w, E, Xr, Xi, rows, W, Wh, stream
     "admm_iteration_rows_f32": [_PTR] * 5 + [_I64, _INT, _INT, _PTR],
@@ -57,8 +73,98 @@ def load_library() -> ctypes.CDLL:
     return _LIB
 
 
+# z, w, tw_w, tw_h, A, Cr, Ci, z', w', thr, batch, H, W, Q, stream
+_CLUSTER_SIGNATURE = [_PTR] * 9 + [ctypes.c_float, _I64, _INT, _INT, _INT, _PTR]
+
+
+def load_cluster_library() -> ctypes.CDLL:
+    """Build (if needed) and load ``libadmm_iteration_cluster.so``; idempotent."""
+    global _CLUSTER_LIB
+    if _CLUSTER_LIB is None:
+        lib = ctypes.CDLL(str(_build.build("admm_iteration_cluster")))
+        lib.admm_iteration_cluster_f32.argtypes = _CLUSTER_SIGNATURE
+        lib.admm_iteration_cluster_f32.restype = _INT
+        lib.admm_iteration_cluster_limits.argtypes = [ctypes.POINTER(_INT)] * 3
+        lib.admm_iteration_cluster_limits.restype = _INT
+        lib.admm_iteration_cluster_smem.argtypes = [_INT] * 3
+        lib.admm_iteration_cluster_smem.restype = _I64
+        lib.admm_iteration_cluster_active.argtypes = [_INT] * 3
+        lib.admm_iteration_cluster_active.restype = _INT
+        _CLUSTER_LIB = lib
+    return _CLUSTER_LIB
+
+
 def reset_launches() -> None:
     fused_iteration.launches = 0
+    fused_iteration.by_design = dict.fromkeys(DESIGNS, 0)
+
+
+# -- the cluster design's shape rule ------------------------------------------
+
+# Shared memory of an H100 (bytes): a block's opt-in limit, an SM's, and what
+# the system keeps per block. The rule reads the card's own limits on the
+# card; on the CPU it names the design an H100 would take.
+H100_SMEM = (232448, 233472, 1024)
+CLUSTER_SIZES = (1, 2, 4, 8)  # blocks per cluster, the portable sizes
+WORK = 2048  # complex values per work buffer (csrc: kWork); H and W are at most this
+
+
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+def cluster_smem(h: int, w: int, q: int) -> int:
+    """Dynamic shared memory of one block of the cluster design (bytes): an
+    mbarrier, its H/Q rows of the half spectrum (complex), its rows of w,
+    and two work buffers (``admm_iteration_cluster.cu``'s layout)."""
+    r, wh = h // q, w // 2 + 1
+    return 16 + r * wh * 8 + r * w * 4 + 2 * WORK * 8
+
+
+def cluster_size(h: int, w: int, smem=H100_SMEM) -> int:
+    """Blocks per cluster for (H, W), or 0 where the cluster design does not
+    take the shape. ``smem``: (block opt-in, SM, reserved per block) bytes.
+
+    The design takes H and W powers of two, 8 <= W, H <= 2048. Q is the smallest of
+    1, 2, 4, 8 (with at least two rows and one bin a block) whose blocks fit
+    two to an SM; failing that, the smallest whose block fits at all.
+    """
+    if not (_pow2(h) and _pow2(w) and w >= 8 and h <= WORK and w <= WORK):
+        return 0
+    block, sm, reserved = smem
+    sizes = [q for q in CLUSTER_SIZES if h >= 2 * q and w // 2 + 1 >= q]
+    for limit in (sm // 2 - reserved, block):
+        for q in sizes:
+            if cluster_smem(h, w, q) <= limit:
+                return q
+    return 0
+
+
+def pick_design(h: int, w: int, design=None, smem=H100_SMEM) -> tuple:
+    """-> ``(design, q)``: the cluster design wherever ``cluster_size`` takes
+    the shape, else the strip design (q = 0). ``design`` asks for one; it
+    raises if the cluster design cannot take the shape."""
+    if design is not None and design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}; expected one of {DESIGNS}")
+    q = cluster_size(h, w, smem)
+    if design == "cluster" and q == 0:
+        raise ValueError(
+            f"the cluster design does not take H={h}, W={w}: it needs H and W powers of two, "
+            f"8 <= W, H <= {WORK}, and a half spectrum that fits a cluster's shared memory"
+        )
+    if design == "strips" or q == 0:
+        return "strips", 0
+    return "cluster", q
+
+
+def twiddles(n: int, device=None, dtype=torch.float32) -> torch.Tensor:
+    """The FFT twiddle table ``exp(-2 pi i t / n)``, t in [0, n), as (n, 2)
+    pairs (re, im) of ``dtype``: the angle from integer t in float64, then
+    the cast. The kernel indexes it by phases q·k·(n / (ns r)) < n, products
+    of integers, so no angle is ever formed from a large float."""
+    t = torch.arange(n, dtype=torch.int64, device=device) % n
+    ang = (2.0 * math.pi / n) * t.to(torch.float64)
+    return torch.stack([torch.cos(ang), -torch.sin(ang)], dim=-1).to(dtype).contiguous()
 
 
 @dataclass
@@ -78,6 +184,9 @@ class FusedIteration:
     f: Optional[torch.Tensor] = None  # (2Wh, W)  [wk cw; -wk sw][:Wh, :]
     planes: Optional[torch.Tensor] = None  # (2, ..., H, Wh) scratch
     strip: int = 0  # spectral columns per block of the column stage, as the library picks it
+    design: str = "strips"  # "cluster" or "strips"
+    q: int = 0  # blocks per cluster of the cluster design
+    tw: Optional[tuple] = None  # (tw_w, tw_h): the cluster design's twiddle tables
 
 
 def fused_iteration_plain(z, w, a_half, cr, ci, thr, mats=None):
@@ -110,7 +219,7 @@ def row_operands(cw, sw):
     return e, f
 
 
-def make_fused_iteration(a_half, cr, ci, h: int, w: int, thr: float, device=None):
+def make_fused_iteration(a_half, cr, ci, h: int, w: int, thr: float, device=None, design=None):
     """-> ``step(z, w) -> (z_new, w_new)``, one fused ADMM-L1 iteration.
 
     ``a_half`` (H, W//2+1), ``cr``/``ci`` (..., H, W//2+1): the blend fields
@@ -118,7 +227,10 @@ def make_fused_iteration(a_half, cr, ci, h: int, w: int, thr: float, device=None
     their dtype and go to ``device``, None meaning the CUDA card).
     ``thr = rho * lam``. The state ``(z, w)`` given to the step has shape
     (..., H, W) with cr's leading shape, and the fields' dtype and device.
-    ``step.fields`` is the ``FusedIteration`` the step runs with.
+    ``design``: None (``pick_design``'s rule), ``"cluster"`` or
+    ``"strips"``; a design that cannot take the shape raises. On the CPU
+    both run the plain version. ``step.fields`` is the ``FusedIteration``
+    the step runs with (``.design``, ``.q``).
     """
     if w % 2:
         raise ValueError(
@@ -139,23 +251,41 @@ def make_fused_iteration(a_half, cr, ci, h: int, w: int, thr: float, device=None
     cw, sw = fourier._dft_mats(w, dtype, device)
     ch, sh = (cw, sw) if h == w else fourier._dft_mats(h, dtype, device)
     it = FusedIteration(h, w, float(thr), a_half, cr, ci, (cw, sw, ch, sh))
-    if device.type == "cuda":
+    if device.type != "cuda":
+        it.design, it.q = pick_design(h, w, design)
+    else:
         if dtype != torch.float32:
             raise TypeError(f"the fused iteration runs in float32 on the card, got {dtype}")
-        it.e, it.f = row_operands(cw, sw)
-        it.planes = torch.empty((2, *cr.shape), dtype=dtype, device=device)
-        with torch.cuda.device(device):
-            it.strip = load_library().admm_iteration_column_strip(h)
-        if it.strip < 0:
-            raise RuntimeError(f"device query failed: cudaError {-it.strip}")
-        if it.strip == 0:
-            raise ValueError(f"H={h} is too tall for the column stage's shared memory")
+        it.design, it.q = pick_design(h, w, design, device_smem(device))
+        if it.design == "cluster":
+            it.tw = (twiddles(w, device), twiddles(h, device))
+        else:
+            it.e, it.f = row_operands(cw, sw)
+            it.planes = torch.empty((2, *cr.shape), dtype=dtype, device=device)
+            with torch.cuda.device(device):
+                it.strip = load_library().admm_iteration_column_strip(h)
+            if it.strip < 0:
+                raise RuntimeError(f"device query failed: cudaError {-it.strip}")
+            if it.strip == 0:
+                raise ValueError(f"H={h} is too tall for the column stage's shared memory")
 
     def step(z, wdual):
         return fused_iteration(z, wdual, it)
 
     step.fields = it
     return step
+
+
+def device_smem(device) -> tuple:
+    """(block opt-in, SM, reserved per block) shared memory of a CUDA
+    device, in bytes, as the cluster library reads it (once per device)."""
+    lib = load_cluster_library()
+    vals = [_INT() for _ in range(3)]
+    with torch.cuda.device(device):
+        err = lib.admm_iteration_cluster_limits(*(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"device query failed: cudaError {err}")
+    return tuple(v.value for v in vals)
 
 
 def _check(it: FusedIteration, z, w) -> str:
@@ -179,9 +309,10 @@ def _check(it: FusedIteration, z, w) -> str:
 
 
 def launch(name: str, device, *args) -> None:
-    """Call one entry point of the library on the current stream; raises
-    if the launch failed."""
-    fn = getattr(load_library(), name)
+    """Call one entry point of a library on the current stream; raises if
+    the launch failed."""
+    lib = load_cluster_library() if name == "admm_iteration_cluster_f32" else load_library()
+    fn = getattr(lib, name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
@@ -204,22 +335,34 @@ def stage_launches(it: FusedIteration, z, w, z_new, w_new) -> list:
     ]
 
 
+def cluster_launch(it: FusedIteration, z, w, z_new, w_new) -> tuple:
+    """The one launch of a step of the cluster design, as ``(entry point,
+    arguments)``."""
+    ptrs = (t.data_ptr() for t in (z, w, *it.tw, it.a_half, it.cr, it.ci, z_new, w_new))
+    return "admm_iteration_cluster_f32", (*ptrs, it.thr, z.numel() // (it.h * it.w), it.h, it.w, it.q)
+
+
 def fused_iteration(z: torch.Tensor, w: torch.Tensor, it: FusedIteration) -> tuple:
     """One fused ADMM-L1 iteration; returns ``(z_new, w_new)``."""
     if _check(it, z, w) == "cpu":
         return fused_iteration_plain(z, w, it.a_half, it.cr, it.ci, it.thr, it.mats)
     z_new, w_new = torch.empty_like(z), torch.empty_like(z)
     if z.numel():
-        for name, args in stage_launches(it, z, w, z_new, w_new):
+        if it.design == "cluster":
+            launches = [cluster_launch(it, z, w, z_new, w_new)]
+        else:
+            launches = stage_launches(it, z, w, z_new, w_new)
+        for name, args in launches:
             launch(name, z.device, *args)
         fused_iteration.launches += 1
+        fused_iteration.by_design[it.design] += 1
     return z_new, w_new
 
 
-fused_iteration.launches = 0
+reset_launches()
 
 
-def admm_l1_fused_kernel(y, mask, cfg, dtype=torch.float32, device=None):
+def admm_l1_fused_kernel(y, mask, cfg, dtype=torch.float32, device=None, design=None):
     """ADMM-L1 through the fused iteration; returns ``(x, z, w)``.
 
     Same math as ``admm.admm_l1(..., dc_method='matmul', fused=False)``.
@@ -227,13 +370,14 @@ def admm_l1_fused_kernel(y, mask, cfg, dtype=torch.float32, device=None):
     arrays or tensors; they go to ``device`` (None: the CUDA card). The
     solver's final x comes from the (z, w) entering the last iteration, so
     ``iter_num - 1`` fused steps run, then one matmul data-consistency
-    solve; z and w are that entering state.
+    solve; z and w are that entering state. ``design`` as in
+    ``make_fused_iteration``.
     """
     y, mask = admm._prepare(y, mask, cfg, device)
     h, w = mask.shape[-2:]
     a_half, c_half = fourier.rfft_blend_fields(y, mask, cfg.rho)
     step = make_fused_iteration(a_half.to(dtype), c_half.real.to(dtype), c_half.imag.to(dtype),
-                                h, w, cfg.rho * cfg.lam, device=y.device)
+                                h, w, cfg.rho * cfg.lam, device=y.device, design=design)
     state = admm.init_state(y, dtype)
     z, wd = state.z, state.w
     for _ in range(max(cfg.iter_num - 1, 0)):

@@ -85,9 +85,23 @@ def test_mixed_devices_raise(cuda):
 FUSED_ATOL = 1e-5
 
 
+def _plain(design, z, wd, fields):
+    """The plain step that a design is held against. The strip design runs
+    the plain version's dense float32 DFT products, so it is held against
+    the plain version in float32, whose rounding it shares. The cluster
+    design's FFTs are more accurate than those products (the float32 plain
+    step is 1.7e-5 off its float64 self in row 0 at H = 1024, the FFT step
+    5e-7), so it is held against the plain version run in float64 on the
+    same inputs."""
+    if design == "cluster":
+        return fused_dc.fused_iteration_plain(z.double(), wd.double(), *(f.double() for f in fields), C_L1)
+    return fused_dc.fused_iteration_plain(z, wd, *fields, C_L1)
+
+
 @pytest.fixture(scope="module")
 def cuda_iteration(cuda):
     fused_dc.load_library()
+    fused_dc.load_cluster_library()
     return cuda
 
 
@@ -110,10 +124,15 @@ def test_fused_iteration_matches_plain(cuda_iteration, shape):
     b, h, w = shape
     z, wd, fields = _fused_case(cuda_iteration, b, h, w)
     step = fused_dc.make_fused_iteration(*fields, h, w, C_L1)
+    # the rule takes the cluster design at every power-of-two shape here
+    assert step.fields.design == ("strips" if h == 300 else "cluster")
     before = fused_dc.fused_iteration.launches
+    by_design = dict(fused_dc.fused_iteration.by_design)
     got = step(z, wd)
     assert fused_dc.fused_iteration.launches == before + 1
-    ref = fused_dc.fused_iteration_plain(z, wd, *fields, C_L1)
+    by_design[step.fields.design] += 1
+    assert fused_dc.fused_iteration.by_design == by_design
+    ref = _plain(step.fields.design, z, wd, fields)
     for a, r in zip(got, ref):
         assert float((a - r).abs().max()) < FUSED_ATOL
     again = step(z, wd)
@@ -125,7 +144,8 @@ def test_column_strip_narrows_as_height_grows(cuda_iteration, h, strip):
     # the library takes the widest strip whose shared memory fits a block
     # (227 KB on the H100), so the matching cases above run all three widths
     _, _, fields = _fused_case(cuda_iteration, 1, h, 16)
-    assert fused_dc.make_fused_iteration(*fields, h, 16, C_L1).fields.strip == strip
+    step = fused_dc.make_fused_iteration(*fields, h, 16, C_L1, design="strips")
+    assert step.fields.strip == strip
 
 
 def test_fused_iteration_refuses_too_tall_images(cuda_iteration):
@@ -138,8 +158,9 @@ def test_fused_iteration_keeps_a_nan_in_its_image(cuda_iteration):
     z, wd, fields = _fused_case(cuda_iteration, 9, 64, 64)
     z[7, 10, 20] = float("nan")
     step = fused_dc.make_fused_iteration(*fields, 64, 64, C_L1)
+    assert step.fields.design == "cluster"
     got = step(z, wd)
-    ref = fused_dc.fused_iteration_plain(z, wd, *fields, C_L1)
+    ref = _plain("cluster", z, wd, fields)
     for a, r in zip(got, ref):
         assert torch.isnan(a[7]).all() and torch.isnan(r[7]).all()
         others = [i for i in range(9) if i != 7]
@@ -155,3 +176,54 @@ def test_fused_iteration_refuses_float64_and_odd_width(cuda_iteration):
         fused_dc.make_fused_iteration(*(f.double() for f in fields), 16, 32, C_L1)
     with pytest.raises(ValueError, match="even W"):
         fused_dc.make_fused_iteration(fields[0][:, :-1], fields[1][..., :-1], fields[2][..., :-1], 16, 31, C_L1)
+
+
+@pytest.mark.parametrize("design, shape", [
+    *(("cluster", s) for s in [(4, 256, 256), (3, 128, 256), (5, 8, 16), (2, 512, 64), (2, 1024, 64)]),
+    *(("strips", s) for s in [(4, 256, 256), (3, 128, 256), (5, 8, 16), (2, 512, 64), (2, 1024, 64)])])
+def test_each_design_matches_plain(cuda_iteration, design, shape):
+    b, h, w = shape
+    z, wd, fields = _fused_case(cuda_iteration, b, h, w, seed=1)
+    step = fused_dc.make_fused_iteration(*fields, h, w, C_L1, design=design)
+    assert step.fields.design == design
+    before = fused_dc.fused_iteration.by_design[design]
+    got = step(z, wd)
+    assert fused_dc.fused_iteration.by_design[design] == before + 1
+    ref = _plain(design, z, wd, fields)
+    for a, r in zip(got, ref):
+        assert float((a - r).abs().max()) < FUSED_ATOL
+    again = step(z, wd)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+def test_strip_design_keeps_a_nan_in_its_image(cuda_iteration):
+    z, wd, fields = _fused_case(cuda_iteration, 9, 64, 64)
+    z[7, 10, 20] = float("nan")
+    got = fused_dc.make_fused_iteration(*fields, 64, 64, C_L1, design="strips")(z, wd)
+    ref = fused_dc.fused_iteration_plain(z, wd, *fields, C_L1)
+    others = [i for i in range(9) if i != 7]
+    for a, r in zip(got, ref):
+        assert torch.isnan(a[7]).all() and torch.isnan(r[7]).all()
+        assert float((a[others] - r[others]).abs().max()) < FUSED_ATOL
+
+
+@pytest.mark.parametrize("h, w, q", [(256, 256, 8), (128, 256, 4), (8, 16, 1), (512, 64, 4), (1024, 64, 8),
+                                     (512, 256, 8)])
+def test_cluster_size_fits_the_card(cuda_iteration, h, w, q):
+    """Q as the rule picks it from the card's own shared memory, the
+    library's block layout equal to the rule's, and clusters resident."""
+    smem = fused_dc.device_smem(cuda_iteration)
+    assert fused_dc.cluster_size(h, w, smem) == q
+    lib = fused_dc.load_cluster_library()
+    assert lib.admm_iteration_cluster_smem(h, w, q) == fused_dc.cluster_smem(h, w, q)
+    assert lib.admm_iteration_cluster_active(h, w, q) > 0
+    _, _, fields = _fused_case(cuda_iteration, 1, h, w)
+    step = fused_dc.make_fused_iteration(*fields, h, w, C_L1)
+    assert (step.fields.design, step.fields.q) == ("cluster", q)
+
+
+def test_cluster_design_refuses_shapes_it_does_not_take(cuda_iteration):
+    _, _, fields = _fused_case(cuda_iteration, 1, 300, 256)
+    with pytest.raises(ValueError, match="cluster design does not take"):
+        fused_dc.make_fused_iteration(*fields, 300, 256, C_L1, design="cluster")
+    assert fused_dc.make_fused_iteration(*fields, 300, 256, C_L1).fields.design == "strips"

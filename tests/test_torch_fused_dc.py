@@ -164,8 +164,10 @@ def test_counter_counts_only_on_cuda_and_resets(monkeypatch):
     fused_dc.admm_l1_fused_kernel(y, mask, CFG, device="cpu")
     assert fused_dc.fused_iteration.launches == 0
     fused_dc.fused_iteration.launches = 5
+    fused_dc.fused_iteration.by_design["cluster"] = 5
     fused_dc.reset_launches()
     assert fused_dc.fused_iteration.launches == 0
+    assert fused_dc.fused_iteration.by_design == {"cluster": 0, "strips": 0}
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "type", "fields"])
@@ -195,14 +197,22 @@ def test_c_signatures_pass_pointers_and_sizes_at_full_width():
         n_ptr = {"rows": 5, "columns": 7, "synthesis": 6}[name.split("_")[2]]
         assert argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr, name
         assert ctypes.c_int64 in argtypes and argtypes[-1] == ctypes.c_void_p, name
+    # the cluster design: z, w, tw_w, tw_h, A, Cr, Ci, z', w', thr, batch, H, W, Q, stream
+    sig = fused_dc._CLUSTER_SIGNATURE
+    assert sig[:9] == [ctypes.c_void_p] * 9
+    assert sig[9] == ctypes.c_float and sig[10] == ctypes.c_int64
+    assert sig[11:14] == [ctypes.c_int] * 3 and sig[-1] == ctypes.c_void_p
 
 
 def test_each_library_has_its_own_flags(tmp_path, monkeypatch):
     """admm_tail keeps --fmad=false (its kernels are compared bit for bit);
-    admm_iteration contracts multiply-adds; each stamp hashes its own flags."""
+    admm_iteration and admm_iteration_cluster contract multiply-adds; each
+    stamp hashes its own flags."""
     assert "--fmad=false" in _build.flags("admm_tail")
-    assert "--fmad=false" not in _build.flags("admm_iteration")
-    assert "arch=compute_90a,code=sm_90a" in _build.flags("admm_iteration")
+    for name in ("admm_iteration", "admm_iteration_cluster"):
+        assert "--fmad=false" not in _build.flags(name)
+        assert "arch=compute_90a,code=sm_90a" in _build.flags(name)
+        assert (_build.CSRC_DIR / f"{name}.cu").is_file()
     calls = []
 
     def fake_run(cmd, **kw):
@@ -255,3 +265,169 @@ def test_stage_algebra_gives_the_plain_step(shape):
     ref = fused_dc.fused_iteration_plain(z, wd, a, cr, ci, THR, (cw, sw, ch, sh))
     np.testing.assert_allclose(z_new.numpy(), ref[0].numpy(), rtol=0, atol=1e-12)
     np.testing.assert_allclose(((wd + x) - z_new).numpy(), ref[1].numpy(), rtol=0, atol=1e-12)
+
+
+# -- the cluster design (csrc/admm_iteration_cluster.cu) ----------------------
+
+def _stockham(x, tw, inverse):
+    """The kernel's FFT over the last axis, stage by stage: Stockham
+    autosort, radix-4 stages then one radix-2 stage where log2(n) is odd,
+    twiddle tw[q k (n / (ns r))] (conjugate for the inverse), output index
+    (j // ns) ns r + k + q ns."""
+    n = x.shape[-1]
+    if inverse:
+        tw = np.conj(tw)
+    ns = 1
+    while ns < n:
+        r = 4 if 4 * ns <= n else 2
+        m = n // r
+        j = np.arange(m)
+        k = j % ns
+        v = [x[..., j + q * m] * tw[q * k * (n // (ns * r))] for q in range(r)]
+        if r == 4:
+            rot = (1j if inverse else -1j) * (v[1] - v[3])
+            s02, d02, s13 = v[0] + v[2], v[0] - v[2], v[1] + v[3]
+            y = [s02 + s13, d02 + rot, s02 - s13, d02 - rot]
+        else:
+            y = [v[0] + v[1], v[0] - v[1]]
+        out = np.empty_like(x)
+        d = (j // ns) * ns * r + k
+        for q in range(r):
+            out[..., d + q * ns] = y[q]
+        x, ns = out, ns * r
+    return x
+
+
+def _cluster_mirror(z, wd, a, cr, ci, thr, dtype):
+    """The cluster kernel's algebra in numpy, in the order the kernel runs
+    it, in ``dtype`` (float32 or float64): packed rows v_2p + i v_2p+1, the
+    row FFT and its separation, the column FFTs, the blend, the inverse
+    column FFTs / H, the imaginary parts of bins 0 and W/2 dropped, the
+    packed Hermitian inverse / W, |.|, soft and the dual."""
+    cplx = np.complex64 if dtype == np.float32 else np.complex128
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    z, wd, a, cr, ci = (np.asarray(t, dtype) for t in (z, wd, a, cr, ci))
+    _, h, w = z.shape
+    wh = w // 2 + 1
+
+    def table(n):
+        t = fused_dc.twiddles(n, dtype=tdt).numpy()
+        return (t[:, 0] + 1j * t[:, 1]).astype(cplx)
+
+    tw_w, tw_h = table(w), table(h)
+    v = z - wd
+    c = _stockham((v[:, 0::2] + 1j * v[:, 1::2]).astype(cplx), tw_w, False)
+    u, m = c[..., :wh], c[..., (w - np.arange(wh)) % w]
+    spec = np.empty((*z.shape[:2], wh), cplx)
+    spec[:, 0::2] = (u + np.conj(m)) * dtype(0.5)
+    spec[:, 1::2] = (u - np.conj(m)) * cplx(-0.5j)
+    col = _stockham(np.swapaxes(spec, -1, -2), tw_h, False)
+    col = np.swapaxes(a, -1, -2) * col + np.swapaxes(cr + 1j * ci, -1, -2).astype(cplx)
+    spec = np.swapaxes(_stockham(col, tw_h, True) * dtype(1.0 / h), -1, -2)
+    spec[..., 0] = spec[..., 0].real
+    spec[..., w // 2] = spec[..., w // 2].real
+    full = np.concatenate([spec, np.conj(spec[..., w // 2 - 1:0:-1])], axis=-1)
+    xs = _stockham(full[:, 0::2] + 1j * full[:, 1::2], tw_w, True)
+    x = np.empty_like(z)
+    x[:, 0::2] = np.abs(xs.real * dtype(1.0 / w))
+    x[:, 1::2] = np.abs(xs.imag * dtype(1.0 / w))
+    u = x + wd
+    z_new = np.sign(u) * np.maximum(np.abs(u) - dtype(thr), dtype(0))
+    return z_new, (wd + x) - z_new
+
+
+def _state(img, seed=1):
+    rng = np.random.default_rng(seed)
+    return img + 0.05 * rng.normal(size=img.shape), 0.01 * rng.normal(size=img.shape)
+
+
+@pytest.mark.parametrize("shape", [(3, 16, 32), (2, 32, 16), (2, 8, 8), (1, 64, 128)])
+def test_cluster_algebra_gives_the_plain_step(shape):
+    """In float64 the kernel's FFT algebra equals the plain dense step."""
+    b, h, w = shape
+    img, mask, y = _scenario(b, h, w, dtype=np.float64)
+    a, cr, ci = _fields(y, mask)
+    z, wd = _state(img)
+    got = _cluster_mirror(z, wd, a, cr, ci, THR, np.float64)
+    ref = fused_dc.fused_iteration_plain(*(torch.from_numpy(t) for t in (z, wd, a, cr, ci)), THR)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r.numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 64), (2, 32, 64), (2, 64, 16)])
+def test_cluster_algebra_matches_pallas(shape):
+    """In float32 the kernel's FFT algebra agrees with the Pallas kernel
+    (interpret mode, block 2) within 1e-5, the card's budget for the step."""
+    b, h, w = shape
+    img, mask, y = _scenario(b, h, w)
+    a, cr, ci = _fields(y, mask)
+    z, wd = (t.astype(np.float32) for t in _state(img))
+    step_j = pallas_dc.make_fused_iteration(*(jnp.asarray(t, jnp.float32) for t in (a, cr, ci)), h, w, THR,
+                                            block=2, interpret=True)
+    ref = step_j(jnp.asarray(z), jnp.asarray(wd))
+    got = _cluster_mirror(z, wd, a, cr, ci, THR, np.float32)
+    for g, r in zip(got, ref):
+        assert g.dtype == np.float32
+        np.testing.assert_allclose(g, np.asarray(r), rtol=0, atol=1e-5)
+
+
+def test_twiddle_table_is_exact_to_its_type():
+    for n in (8, 256, 1024):
+        t = fused_dc.twiddles(n, dtype=torch.float64).numpy()
+        ref = np.exp(-2j * np.pi * np.arange(n) / n)
+        np.testing.assert_allclose(t[:, 0] + 1j * t[:, 1], ref, rtol=0, atol=1e-15)
+        assert fused_dc.twiddles(n).dtype == torch.float32
+
+
+@pytest.mark.parametrize("shape, design, q", [
+    ((256, 256), "cluster", 8), ((128, 256), "cluster", 4), ((8, 16), "cluster", 1),
+    ((512, 64), "cluster", 4), ((1024, 64), "cluster", 8), ((64, 64), "cluster", 1),
+    ((512, 256), "cluster", 8),  # one block an SM: 164 KB a block
+    ((1024, 256), "strips", 0),  # 289 KB a block even at Q = 8
+    ((300, 256), "strips", 0), ((256, 300), "strips", 0), ((256, 4), "strips", 0),
+    ((4096, 8), "strips", 0)])  # taller than a work buffer
+def test_shape_rule_picks_the_design(shape, design, q):
+    h, w = shape
+    assert fused_dc.pick_design(h, w) == (design, q)
+    assert fused_dc.cluster_size(h, w) == q
+    if q:
+        block, sm, reserved = fused_dc.H100_SMEM
+        assert fused_dc.cluster_smem(h, w, q) <= block
+        two_an_sm = fused_dc.cluster_smem(h, w, q) <= sm // 2 - reserved
+        assert two_an_sm == ((h, w) != (512, 256))
+    assert fused_dc.pick_design(h, w, "strips") == ("strips", 0)
+
+
+def test_main_path_block_fits_two_an_sm():
+    # 256 x 256 at Q = 8: 33,024 B of spectrum, 32,768 of w, 32,768 of work
+    assert fused_dc.cluster_smem(256, 256, 8) == 16 + 33024 + 32768 + 32768
+    assert 2 * (fused_dc.cluster_smem(256, 256, 8) + fused_dc.H100_SMEM[2]) <= fused_dc.H100_SMEM[1]
+
+
+@pytest.mark.parametrize("h, w", [(300, 256), (1024, 256), (16, 4)])
+def test_asking_for_a_design_that_cannot_take_the_shape_raises(h, w):
+    with pytest.raises(ValueError, match="cluster design does not take"):
+        fused_dc.pick_design(h, w, "cluster")
+    if w % 2 == 0 and w >= 8:
+        img, mask, y = _scenario(1, h, w)
+        a, cr, ci = _fields(y, mask)
+        with pytest.raises(ValueError, match="cluster design does not take"):
+            fused_dc.make_fused_iteration(a, cr, ci, h, w, THR, device="cpu", design="cluster")
+    with pytest.raises(ValueError, match="unknown design"):
+        fused_dc.pick_design(h, w, "dense")
+
+
+def test_step_names_its_design_and_both_run_the_plain_version_on_the_cpu():
+    _, mask, y = _scenario(2, 16, 32)
+    a, cr, ci = _fields(y, mask)
+    z, wd = (torch.from_numpy(t.astype(np.float32)) for t in _state(np.zeros((2, 16, 32))))
+    steps = {d: fused_dc.make_fused_iteration(a, cr, ci, 16, 32, THR, device="cpu", design=d)
+             for d in (None, "cluster", "strips")}
+    assert (steps[None].fields.design, steps[None].fields.q) == ("cluster", 1)
+    assert (steps["strips"].fields.design, steps["strips"].fields.q) == ("strips", 0)
+    before = dict(fused_dc.fused_iteration.by_design)
+    outs = [s(z, wd) for s in steps.values()]
+    for o in outs[1:]:
+        assert all(torch.equal(g, r) for g, r in zip(o, outs[0]))
+    assert fused_dc.fused_iteration.by_design == before  # the plain path does not count
+
