@@ -287,25 +287,26 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) cluster_iteration(A
   }
   cluster.sync();
 
-  // -- 2: column transforms and the blend, over this block's run of bins ---
-  // Columns go in batches of a power of two (at most kWork / H); a batch past
-  // the run's end repeats its last column and does not write it back.
-  const int per = wh / p.q, rest = wh % p.q;
-  const int nk = per + (rank < rest ? 1 : 0);
-  const int k_first = rank * per + min(rank, rest);
-  const int log_cb = min(32 - __clz(nk - 1), kLogWork - p.log_h);  // ceil(log2 nk), capped
+  // -- 2: column transforms and the blend, over this block's column slots ---
+  // The Wh bins make W/2 slots: slot 0 holds bins 0 and W/2, whose row
+  // transforms are real, as one complex column bin0 + i bin(W/2); slot k > 0
+  // is bin k. A block owns W/2/Q consecutive slots and takes them in batches
+  // of a power of two (at most kWork / H).
+  const int nk = (W / 2) / p.q;
+  const int s_first = rank * nk;
+  const int log_cb = min(__ffs(nk) - 1, kLogWork - p.log_h);
   const int cb = 1 << log_cb;
   const float inv_h = 1.f / static_cast<float>(H);
   for (int c0 = 0; c0 < nk && ADMM_CLUSTER_PHASES >= 2; c0 += cb) {
-    // element (row hh, column cc) at hh * cb + cc; gather from the Q blocks
+    const int k0 = s_first + c0;  // element (row hh, slot k0 + cc) at hh * cb + cc
     float2 g[kPer];
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int e = tid + i * kThreads;
       if (e < (H << log_cb)) {
-        const int hh = e >> log_cb, k = k_first + min(c0 + (e & (cb - 1)), nk - 1);
-        const float2* src = cluster.map_shared_rank(spec, hh / R);
-        g[i] = src[(hh % R) * wh + k];
+        const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
+        const float2* src = cluster.map_shared_rank(spec, hh / R) + (hh % R) * wh;
+        g[i] = k ? src[k] : make_float2(src[0].x, src[W / 2].x);
       }
     }
 #pragma unroll
@@ -320,8 +321,8 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) cluster_iteration(A
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int e = tid + i * kThreads;
-      if (e < (H << log_cb)) {
-        const int hh = e >> log_cb, k = k_first + min(c0 + (e & (cb - 1)), nk - 1);
+      const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
+      if (e < (H << log_cb) && k) {
         const int64_t o = (b * H + hh) * wh + k;
         av[i] = p.a[static_cast<int64_t>(hh) * wh + k];
         cr[i] = p.cr[o];
@@ -331,18 +332,48 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) cluster_iteration(A
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int e = tid + i * kThreads;
-      if (e < (H << log_cb)) y[e] = make_float2(av[i] * y[e].x + cr[i], av[i] * y[e].y + ci[i]);
+      if (e < (H << log_cb) && k0 + (e & (cb - 1))) {
+        y[e] = make_float2(av[i] * y[e].x + cr[i], av[i] * y[e].y + ci[i]);
+      }
+    }
+    if (k0 == 0) {
+      // slot 0: rows m and -m of the packed transform give bins 0 and W/2
+      // (each the transform of a real column, so Hermitian), each is blended,
+      // and only the Hermitian part of each blend is kept, since only the
+      // real part of its inverse is used; packed again as bin0 + i bin(W/2)
+      for (int m = tid; m <= H / 2; m += kThreads) {
+        const int mn = (H - m) & (H - 1);
+        const float2 fp = y[m << log_cb], fn = y[mn << log_cb];
+        const float2 y0 = make_float2(0.5f * (fp.x + fn.x), 0.5f * (fp.y - fn.y));
+        const float2 yn = make_float2(0.5f * (fp.y + fn.y), -0.5f * (fp.x - fn.x));
+        const int64_t om = (b * H + m) * wh, on = (b * H + mn) * wh;
+        const float* am = p.a + static_cast<int64_t>(m) * wh;
+        const float* an = p.a + static_cast<int64_t>(mn) * wh;
+        // blends at (m, 0), (-m, 0), (m, W/2), (-m, W/2); Y(-m) = conj(Y(m))
+        const float2 h0m = make_float2(am[0] * y0.x + p.cr[om], am[0] * y0.y + p.ci[om]);
+        const float2 h0n = make_float2(an[0] * y0.x + p.cr[on], -an[0] * y0.y + p.ci[on]);
+        const float2 hnm = make_float2(am[W / 2] * yn.x + p.cr[om + W / 2], am[W / 2] * yn.y + p.ci[om + W / 2]);
+        const float2 hnn = make_float2(an[W / 2] * yn.x + p.cr[on + W / 2], -an[W / 2] * yn.y + p.ci[on + W / 2]);
+        const float2 e0 = make_float2(0.5f * (h0m.x + h0n.x), 0.5f * (h0m.y - h0n.y));
+        const float2 en = make_float2(0.5f * (hnm.x + hnn.x), 0.5f * (hnm.y - hnn.y));
+        y[m << log_cb] = make_float2(e0.x - en.y, e0.y + en.x);
+        y[mn << log_cb] = make_float2(e0.x + en.y, en.x - e0.y);
+      }
     }
     __syncthreads();
     const float2* x = fft<true>(y, other, p.log_h, log_cb, true, p.tw_h);
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int e = tid + i * kThreads;
-      const int cc = c0 + (e & (cb - 1));
-      if (e < (H << log_cb) && cc < nk) {
-        const int hh = e >> log_cb;
-        float2* dst = cluster.map_shared_rank(spec, hh / R);
-        dst[(hh % R) * wh + k_first + cc] = make_float2(x[e].x * inv_h, x[e].y * inv_h);
+      if (e < (H << log_cb)) {
+        const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
+        float2* dst = cluster.map_shared_rank(spec, hh / R) + (hh % R) * wh;
+        if (k) {
+          dst[k] = make_float2(x[e].x * inv_h, x[e].y * inv_h);
+        } else {  // the real parts of the inverses of bins 0 and W/2
+          dst[0] = make_float2(x[e].x * inv_h, 0.f);
+          dst[W / 2] = make_float2(x[e].y * inv_h, 0.f);
+        }
       }
     }
     __syncthreads();
@@ -364,8 +395,7 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) cluster_iteration(A
       if (e < (batch << p.log_w)) {
         const int ra = 2 * p0 + 2 * (e >> p.log_w), k = e & (W - 1);
         const int kk = k < wh ? k : W - k;
-        float2 xa = spec[ra * wh + kk], xb = spec[(ra + 1) * wh + kk];
-        if (kk == 0 || kk == W / 2) xa.y = xb.y = 0.f;  // bins 0 and W/2: real parts only
+        float2 xa = spec[ra * wh + kk], xb = spec[(ra + 1) * wh + kk];  // bins 0, W/2: real
         if (k >= wh) {
           xa.y = -xa.y;
           xb.y = -xb.y;
@@ -428,7 +458,7 @@ const DeviceState& device_state(int* dev_out) {
 bool shape_ok(int h, int w, int q) {
   auto pow2 = [](int n) { return n > 0 && (n & (n - 1)) == 0; };
   return pow2(h) && pow2(w) && w >= 8 && h <= kWork && w <= kWork && (q == 1 || q == 2 || q == 4 || q == 8) &&
-         h >= 2 * q && w / 2 + 1 >= q;
+         h >= 2 * q && w / 2 >= q;
 }
 
 int log2i(int n) {

@@ -126,13 +126,13 @@ def cluster_size(h: int, w: int, smem=H100_SMEM) -> int:
     take the shape. ``smem``: (block opt-in, SM, reserved per block) bytes.
 
     The design takes H and W powers of two, 8 <= W, H <= 2048. Q is the smallest of
-    1, 2, 4, 8 (with at least two rows and one bin a block) whose blocks fit
+    1, 2, 4, 8 (with at least two rows and one column slot a block) whose blocks fit
     two to an SM; failing that, the smallest whose block fits at all.
     """
     if not (_pow2(h) and _pow2(w) and w >= 8 and h <= WORK and w <= WORK):
         return 0
     block, sm, reserved = smem
-    sizes = [q for q in CLUSTER_SIZES if h >= 2 * q and w // 2 + 1 >= q]
+    sizes = [q for q in CLUSTER_SIZES if h >= 2 * q and w // 2 >= q]
     for limit in (sm // 2 - reserved, block):
         for q in sizes:
             if cluster_smem(h, w, q) <= limit:

@@ -107,11 +107,9 @@ def time_variants(dev, specs):
     variants = {}
     for spec in specs or ["default"]:
         name, _, vals = spec.partition("=")
-        if vals:
-            path, regs = build_variant(name, *(int(v) for v in vals.split(",")))
-            regs = [vals, *regs]
-        else:
-            path, regs = _build.build("admm_iteration_cluster"), ["source defaults"]
+        values = [int(v) for v in vals.split(",")] if vals else []
+        path, regs = build_variant(name, *values)
+        regs = [vals or "source defaults", *regs]
         fused_dc._CLUSTER_LIB = None
         real_build = _build.build
         _build.build = lambda n, p=path: p

@@ -301,9 +301,10 @@ def _stockham(x, tw, inverse):
 def _cluster_mirror(z, wd, a, cr, ci, thr, dtype):
     """The cluster kernel's algebra in numpy, in the order the kernel runs
     it, in ``dtype`` (float32 or float64): packed rows v_2p + i v_2p+1, the
-    row FFT and its separation, the column FFTs, the blend, the inverse
-    column FFTs / H, the imaginary parts of bins 0 and W/2 dropped, the
-    packed Hermitian inverse / W, |.|, soft and the dual."""
+    row FFT and its separation, the column FFTs of W/2 slots (slot 0 packs
+    the real bins 0 and W/2), the blend (slot 0: separated, blended, the
+    Hermitian parts kept and packed again), the inverse column FFTs / H, the
+    packed Hermitian inverse of the rows / W, |.|, soft and the dual."""
     cplx = np.complex64 if dtype == np.float32 else np.complex128
     tdt = torch.float32 if dtype == np.float32 else torch.float64
     z, wd, a, cr, ci = (np.asarray(t, dtype) for t in (z, wd, a, cr, ci))
@@ -321,11 +322,25 @@ def _cluster_mirror(z, wd, a, cr, ci, thr, dtype):
     spec = np.empty((*z.shape[:2], wh), cplx)
     spec[:, 0::2] = (u + np.conj(m)) * dtype(0.5)
     spec[:, 1::2] = (u - np.conj(m)) * cplx(-0.5j)
-    col = _stockham(np.swapaxes(spec, -1, -2), tw_h, False)
-    col = np.swapaxes(a, -1, -2) * col + np.swapaxes(cr + 1j * ci, -1, -2).astype(cplx)
-    spec = np.swapaxes(_stockham(col, tw_h, True) * dtype(1.0 / h), -1, -2)
-    spec[..., 0] = spec[..., 0].real
-    spec[..., w // 2] = spec[..., w // 2].real
+    # the columns: W/2 slots, slot 0 packing bins 0 and W/2 (real) as bin0 + i bin(W/2)
+    cplx_c = (cr + 1j * ci).astype(cplx)
+    slots = spec[..., :w // 2].copy()
+    slots[..., 0] = spec[..., 0].real + 1j * spec[..., w // 2].real
+    y_ = np.swapaxes(_stockham(np.swapaxes(slots, -1, -2), tw_h, False), -1, -2)  # (B, H, W/2)
+    hb = a[:, :w // 2] * y_ + cplx_c[..., :w // 2]
+    fp = y_[..., 0]
+    fn = fp[..., (h - np.arange(h)) % h]
+    y0, yn = (fp + np.conj(fn)) * dtype(0.5), (fp - np.conj(fn)) * cplx(-0.5j)
+    h0 = a[:, 0] * y0 + cplx_c[..., 0]
+    hn = a[:, w // 2] * yn + cplx_c[..., w // 2]
+    e0 = (h0 + np.conj(h0[..., (h - np.arange(h)) % h])) * dtype(0.5)
+    en = (hn + np.conj(hn[..., (h - np.arange(h)) % h])) * dtype(0.5)
+    hb[..., 0] = e0 + 1j * en
+    inv = np.swapaxes(_stockham(np.swapaxes(hb, -1, -2), tw_h, True), -1, -2) * dtype(1.0 / h)
+    spec = np.empty_like(spec)
+    spec[..., :w // 2] = inv
+    spec[..., 0] = inv[..., 0].real
+    spec[..., w // 2] = inv[..., 0].imag
     full = np.concatenate([spec, np.conj(spec[..., w // 2 - 1:0:-1])], axis=-1)
     xs = _stockham(full[:, 0::2] + 1j * full[:, 1::2], tw_w, True)
     x = np.empty_like(z)
