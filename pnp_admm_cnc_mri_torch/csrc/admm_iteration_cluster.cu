@@ -92,6 +92,11 @@ namespace {
 #ifndef ADMM_CLUSTER_PHASES
 #define ADMM_CLUSTER_PHASES 3
 #endif
+// probe only (wrong results): bit 0 gathers and scatters in the block's own
+// spectrum, bit 1 blends with A = 1, C = 0 without reading them
+#ifndef ADMM_CLUSTER_SHORTCUT
+#define ADMM_CLUSTER_SHORTCUT 0
+#endif
 constexpr int kThreads = ADMM_CLUSTER_THREADS;
 constexpr int kLogWork = 11;
 constexpr int kWork = 1 << kLogWork;
@@ -305,7 +310,7 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) cluster_iteration(A
       const int e = tid + i * kThreads;
       if (e < (H << log_cb)) {
         const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
-        const float2* src = cluster.map_shared_rank(spec, hh / R) + (hh % R) * wh;
+        const float2* src = ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh / R)) + (hh % R) * wh;
         g[i] = k ? src[k] : make_float2(src[0].x, src[W / 2].x);
       }
     }
@@ -322,7 +327,10 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) cluster_iteration(A
     for (int i = 0; i < kPer; ++i) {
       const int e = tid + i * kThreads;
       const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
-      if (e < (H << log_cb) && k) {
+      if (ADMM_CLUSTER_SHORTCUT & 2) {
+        av[i] = 1.f;
+        cr[i] = ci[i] = 0.f;
+      } else if (e < (H << log_cb) && k) {
         const int64_t o = (b * H + hh) * wh + k;
         av[i] = p.a[static_cast<int64_t>(hh) * wh + k];
         cr[i] = p.cr[o];
@@ -367,7 +375,7 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) cluster_iteration(A
       const int e = tid + i * kThreads;
       if (e < (H << log_cb)) {
         const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
-        float2* dst = cluster.map_shared_rank(spec, hh / R) + (hh % R) * wh;
+        float2* dst = ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh / R)) + (hh % R) * wh;
         if (k) {
           dst[k] = make_float2(x[e].x * inv_h, x[e].y * inv_h);
         } else {  // the real parts of the inverses of bins 0 and W/2

@@ -5,12 +5,13 @@
                                           the float32 plain step against a
                                           float64 plain step, at the card
                                           tests' shapes
-    python3 probes/k3_probe.py time [NAME=T,P ...]
+    python3 probes/k3_probe.py time [NAME=T,P,S ...]
                                           the cluster step at 512 x 256 x 256
                                           built with the kernel's -D
-                                          ADMM_CLUSTER_THREADS=T and
+                                          ADMM_CLUSTER_THREADS=T,
                                           ADMM_CLUSTER_PHASES=P (P < 3 stops
-                                          after that phase; a prefix of them;
+                                          after that phase) and
+                                          ADMM_CLUSTER_SHORTCUT=S (a prefix of them;
                                           the rest and NAME alone take the
                                           source's defaults), timed in turns
                                           (forward, then backward), with the
@@ -85,7 +86,7 @@ def cuda_ms(fn, reps=5, inner=5):
     return statistics.median(times)
 
 
-KNOBS = ("THREADS", "PHASES")
+KNOBS = ("THREADS", "PHASES", "SHORTCUT")
 
 
 def build_variant(name, *values):
