@@ -97,6 +97,12 @@ namespace {
 #ifndef ADMM_CLUSTER_SHORTCUT
 #define ADMM_CLUSTER_SHORTCUT 0
 #endif
+#ifndef ADMM_CLUSTER_EARLY_C
+#define ADMM_CLUSTER_EARLY_C 0
+#endif
+#ifndef ADMM_CLUSTER_MIN_BLOCKS
+#define ADMM_CLUSTER_MIN_BLOCKS (1024 / ADMM_CLUSTER_THREADS)
+#endif
 constexpr int kThreads = ADMM_CLUSTER_THREADS;
 constexpr int kLogWork = 11;
 constexpr int kWork = 1 << kLogWork;
@@ -238,7 +244,7 @@ inline size_t cluster_smem(int h, int w, int q) {
 // that each thread issues all its loads before it stores (remote and device
 // loads have long latencies). At most 64 registers a thread, so that two
 // blocks of up to 512 threads fit an SM.
-__global__ void __launch_bounds__(kThreads, 1024 / kThreads) cluster_iteration(Args p) {
+__global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_iteration(Args p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int64_t b = blockIdx.x / p.q;
@@ -319,24 +325,28 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) cluster_iteration(A
       const int e = tid + i * kThreads;
       if (e < (H << log_cb)) buf0[e] = g[i];
     }
+    float av[kPer], cr[kPer], ci[kPer];
+    auto load_blend = [&] {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int e = tid + i * kThreads;
+        const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
+        if (ADMM_CLUSTER_SHORTCUT & 2) {
+          av[i] = 1.f;
+          cr[i] = ci[i] = 0.f;
+        } else if (e < (H << log_cb) && k) {
+          const int64_t o = (b * H + hh) * wh + k;
+          av[i] = p.a[static_cast<int64_t>(hh) * wh + k];
+          cr[i] = p.cr[o];
+          ci[i] = p.ci[o];
+        }
+      }
+    };
+    if (ADMM_CLUSTER_EARLY_C) load_blend();
     __syncthreads();
     float2* y = fft<false>(buf0, buf1, p.log_h, log_cb, true, p.tw_h);
     float2* other = (y == buf0) ? buf1 : buf0;
-    float av[kPer], cr[kPer], ci[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kThreads;
-      const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
-      if (ADMM_CLUSTER_SHORTCUT & 2) {
-        av[i] = 1.f;
-        cr[i] = ci[i] = 0.f;
-      } else if (e < (H << log_cb) && k) {
-        const int64_t o = (b * H + hh) * wh + k;
-        av[i] = p.a[static_cast<int64_t>(hh) * wh + k];
-        cr[i] = p.cr[o];
-        ci[i] = p.ci[o];
-      }
-    }
+    if (!ADMM_CLUSTER_EARLY_C) load_blend();
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int e = tid + i * kThreads;
