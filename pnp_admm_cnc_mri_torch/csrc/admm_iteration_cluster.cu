@@ -92,13 +92,10 @@ namespace {
 #ifndef ADMM_CLUSTER_PHASES
 #define ADMM_CLUSTER_PHASES 3
 #endif
-// probe only (wrong results): bit 0 gathers and scatters in the block's own
-// spectrum, bit 1 blends with A = 1, C = 0 without reading them
+// probe only (wrong results): 1 gathers and scatters in the block's own
+// spectrum
 #ifndef ADMM_CLUSTER_SHORTCUT
 #define ADMM_CLUSTER_SHORTCUT 0
-#endif
-#ifndef ADMM_CLUSTER_EARLY_C
-#define ADMM_CLUSTER_EARLY_C 0
 #endif
 #ifndef ADMM_CLUSTER_MIN_BLOCKS
 #define ADMM_CLUSTER_MIN_BLOCKS (1024 / ADMM_CLUSTER_THREADS)
@@ -154,6 +151,13 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
+
+// 4-byte copy from device to shared memory, asynchronous; and the wait for
+// all of a thread's copies.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // `count` complex FFTs of length n = 2^log_n in shared memory, count a
 // power of two: element i of sequence s at a[i * es + s * ss]. Stockham
@@ -296,15 +300,24 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
     }
     __syncthreads();
   }
+
+  // The Wh bins make W/2 column slots: slot 0 holds bins 0 and W/2, whose
+  // row transforms are real, as one complex column bin0 + i bin(W/2); slot
+  // k > 0 is bin k. A block owns W/2/Q consecutive slots. Their Cr and Ci
+  // (2 H W/2/Q = R W floats) are copied now into the w buffer, free until
+  // phase 3 loads w again: cs[plane][row][slot - s_first]. Slot 0 reads its
+  // bins of C where it blends them.
+  const int nk = (W / 2) / p.q, log_nk = __ffs(nk) - 1;
+  const int s_first = rank * nk;
+  float* cs = wk;
+  for (int e = tid; e < R * W && ADMM_CLUSTER_PHASES >= 2; e += kThreads) {
+    const int k = s_first + (e & (nk - 1)), hh = (e >> log_nk) & (H - 1);
+    if (k) cp_async4(&cs[e], ((e >> (log_nk + p.log_h)) ? p.ci : p.cr) + (b * H + hh) * wh + k);
+  }
   cluster.sync();
 
   // -- 2: column transforms and the blend, over this block's column slots ---
-  // The Wh bins make W/2 slots: slot 0 holds bins 0 and W/2, whose row
-  // transforms are real, as one complex column bin0 + i bin(W/2); slot k > 0
-  // is bin k. A block owns W/2/Q consecutive slots and takes them in batches
-  // of a power of two (at most kWork / H).
-  const int nk = (W / 2) / p.q;
-  const int s_first = rank * nk;
+  // in batches of a power of two (at most kWork / H)
   const int log_cb = min(__ffs(nk) - 1, kLogWork - p.log_h);
   const int cb = 1 << log_cb;
   const float inv_h = 1.f / static_cast<float>(H);
@@ -325,33 +338,23 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
       const int e = tid + i * kThreads;
       if (e < (H << log_cb)) buf0[e] = g[i];
     }
-    float av[kPer], cr[kPer], ci[kPer];
-    auto load_blend = [&] {
+    float av[kPer];
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int e = tid + i * kThreads;
-        const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
-        if (ADMM_CLUSTER_SHORTCUT & 2) {
-          av[i] = 1.f;
-          cr[i] = ci[i] = 0.f;
-        } else if (e < (H << log_cb) && k) {
-          const int64_t o = (b * H + hh) * wh + k;
-          av[i] = p.a[static_cast<int64_t>(hh) * wh + k];
-          cr[i] = p.cr[o];
-          ci[i] = p.ci[o];
-        }
-      }
-    };
-    if (ADMM_CLUSTER_EARLY_C) load_blend();
+    for (int i = 0; i < kPer; ++i) {  // A is shared by all images: an L2 hit
+      const int e = tid + i * kThreads;
+      if (e < (H << log_cb)) av[i] = p.a[static_cast<int64_t>(e >> log_cb) * wh + k0 + (e & (cb - 1))];
+    }
+    if (c0 == 0) cp_async_wait_all();
     __syncthreads();
     float2* y = fft<false>(buf0, buf1, p.log_h, log_cb, true, p.tw_h);
     float2* other = (y == buf0) ? buf1 : buf0;
-    if (!ADMM_CLUSTER_EARLY_C) load_blend();
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int e = tid + i * kThreads;
-      if (e < (H << log_cb) && k0 + (e & (cb - 1))) {
-        y[e] = make_float2(av[i] * y[e].x + cr[i], av[i] * y[e].y + ci[i]);
+      const int cc = c0 + (e & (cb - 1));
+      if (e < (H << log_cb) && s_first + cc) {
+        const int o = ((e >> log_cb) << log_nk) + cc;
+        y[e] = make_float2(av[i] * y[e].x + cs[o], av[i] * y[e].y + cs[(H << log_nk) + o]);
       }
     }
     if (k0 == 0) {
@@ -379,6 +382,11 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
       }
     }
     __syncthreads();
+    if (c0 + cb >= nk && tid == 0) {  // C is read: load w again for phase 3
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(bar, row_bytes);
+      bulk_load(wk, p.w + row0 * W, row_bytes, bar);
+    }
     const float2* x = fft<true>(y, other, p.log_h, log_cb, true, p.tw_h);
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
@@ -406,6 +414,7 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
       p.w_out[row0 * W + e] = wk[e];
     }
   }
+  if (ADMM_CLUSTER_PHASES >= 3) mbar_wait(bar, 1);
   for (int p0 = 0; p0 < pairs && ADMM_CLUSTER_PHASES >= 3; p0 += batch) {
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {

@@ -5,13 +5,13 @@
                                           the float32 plain step against a
                                           float64 plain step, at the card
                                           tests' shapes
-    python3 probes/k3_probe.py time [NAME=T,P,S,E,M ...]
+    python3 probes/k3_probe.py time [NAME=T,P,S,M ...]
                                           the cluster step at 512 x 256 x 256
                                           built with the kernel's -D
                                           ADMM_CLUSTER_THREADS=T,
                                           ADMM_CLUSTER_PHASES=P (P < 3 stops
                                           after that phase) and
-                                          ADMM_CLUSTER_SHORTCUT=S, _EARLY_C=E,
+                                          ADMM_CLUSTER_SHORTCUT=S,
                                           _MIN_BLOCKS=M (a prefix of them;
                                           the rest and NAME alone take the
                                           source's defaults), timed in turns
@@ -87,7 +87,7 @@ def cuda_ms(fn, reps=5, inner=5):
     return statistics.median(times)
 
 
-KNOBS = ("THREADS", "PHASES", "SHORTCUT", "EARLY_C", "MIN_BLOCKS")
+KNOBS = ("THREADS", "PHASES", "SHORTCUT", "MIN_BLOCKS")
 
 
 def build_variant(name, *values):
