@@ -81,9 +81,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// Threads a block (512: a Stockham stage of the main path is one butterfly a
-// thread), and the complex values of each of a block's two work buffers;
-// H and W are at most kWork. A probe build may set the threads, and may stop
+// Threads a block (512: a Stockham stage of a full work buffer is 8
+// elements a thread), and the complex values of the block's work buffer
+// (kWork, and kPad more for the columns' padded pitch); H and W are at most
+// kWork / 2. A probe build may set the threads, and may stop
 // after phase 0 (the loads), 1 or 2 and then write w as z' and w', to time
 // the phases by difference (probes/k3_probe.py); the library runs all 3.
 #ifndef ADMM_CLUSTER_THREADS
@@ -101,8 +102,9 @@ namespace {
 #define ADMM_CLUSTER_MIN_BLOCKS (1024 / ADMM_CLUSTER_THREADS)
 #endif
 constexpr int kThreads = ADMM_CLUSTER_THREADS;
-constexpr int kLogWork = 11;
+constexpr int kLogWork = 12;
 constexpr int kWork = 1 << kLogWork;
+constexpr int kPad = 64;
 constexpr int kPer = kWork / kThreads;  // work-buffer elements a thread
 constexpr int kMaxDevices = 64;
 
@@ -159,66 +161,88 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
-// `count` complex FFTs of length n = 2^log_n in shared memory, count a
-// power of two: element i of sequence s at a[i * es + s * ss]. Stockham
-// stages alternate between a and b; returns the buffer that holds the
-// result. `interleaved` (es = count, ss = 1) maps neighbouring threads to
-// neighbouring sequences; otherwise (es = 1, ss = n) to neighbouring
-// butterflies of one sequence. Called by every thread of the block, after a
-// barrier; ends with one.
+// `count` complex FFTs of length n = 2^log_n (8 <= n <= kWork), in place
+// in shared memory: sequence s at a + s * pitch, its elements contiguous.
+// Stockham stages, radix 4 and, where log2(n) is odd, one radix 2 last.
+// Each sequence is owned by n / 8 threads, 8 elements a thread a stage: a
+// stage loads them into registers, syncs the sequence's threads, computes,
+// stores in place, and syncs again: __syncwarp where a sequence fits in a
+// warp, the block's barrier otherwise. Every thread of the block calls it
+// (threads past count * n / 8 only take part in the syncs).
 template <bool INV>
-__device__ float2* fft(float2* a, float2* b, int log_n, int log_count, bool interleaved,
-                       const float2* __restrict__ tw) {
-  const int es = interleaved ? 1 << log_count : 1;
-  const int ss = interleaved ? 1 : 1 << log_n;
+__device__ void fft(float2* a, int log_n, int count, int pitch, const float2* __restrict__ tw) {
+  const int log_g = log_n - 3;  // threads a sequence
+  const int g = 1 << log_g;
+  const int s = threadIdx.x >> log_g, lt = threadIdx.x & (g - 1);
+  const bool active = s < count;
+  float2* x = a + s * pitch;
+  auto sync = [&] {
+    if (log_g <= 5) {
+      __syncwarp();
+    } else {
+      __syncthreads();
+    }
+  };
   for (int log_ns = 0; log_ns < log_n;) {
     const int log_r = (log_ns + 2 <= log_n) ? 2 : 1;
-    const int log_m = log_n - log_r;  // butterflies per sequence: m = n / r
+    const int log_m = log_n - log_r;  // butterflies a sequence: m = n / r = (8 / r) g
     const int m = 1 << log_m, ns = 1 << log_ns;
     const int tw_shift = log_m - log_ns;  // twiddle step n / (ns r)
-    const int tasks = 1 << (log_count + log_m);
-    for (int t = threadIdx.x; t < tasks; t += kThreads) {
-      const int s = interleaved ? t & ((1 << log_count) - 1) : t >> log_m;
-      const int j = interleaved ? t >> log_count : t & (m - 1);
-      const int k = j & (ns - 1);
-      const int base = s * ss;
-      const int d = ((j >> log_ns) << (log_ns + log_r)) + k;
-      float2 v[4];
+    float2 v[8];
+    // butterfly c of this thread is j = lt + c g; its input q is x[j + q m]
+    if (active) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (q < (1 << log_r)) {
-          v[q] = a[base + (j + q * m) * es];
-          if (q > 0 && k > 0) {  // k = 0: the twiddle is 1
-            float2 wq = __ldg(&tw[(q * k) << tw_shift]);
-            if (INV) wq.y = -wq.y;
-            v[q] = cmul(v[q], wq);
-          }
-        }
-      }
-      if (log_r == 2) {
-        // forward: y1 = v0 - i v1 - v2 + i v3; the inverse flips the signs of i
-        const float2 s02 = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
-        const float2 d02 = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
-        const float2 s13 = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
-        const float2 d13 = make_float2(v[1].x - v[3].x, v[1].y - v[3].y);
-        // -i d13 = (d13.y, -d13.x)
-        const float2 rot = INV ? make_float2(-d13.y, d13.x) : make_float2(d13.y, -d13.x);
-        b[base + d * es] = make_float2(s02.x + s13.x, s02.y + s13.y);
-        b[base + (d + ns) * es] = make_float2(d02.x + rot.x, d02.y + rot.y);
-        b[base + (d + 2 * ns) * es] = make_float2(s02.x - s13.x, s02.y - s13.y);
-        b[base + (d + 3 * ns) * es] = make_float2(d02.x - rot.x, d02.y - rot.y);
-      } else {
-        b[base + d * es] = make_float2(v[0].x + v[1].x, v[0].y + v[1].y);
-        b[base + (d + ns) * es] = make_float2(v[0].x - v[1].x, v[0].y - v[1].y);
+      for (int i = 0; i < 8; ++i) {
+        const int q = i & ((1 << log_r) - 1), c = i >> log_r;
+        v[i] = x[lt + c * g + q * m];
       }
     }
-    __syncthreads();
-    float2* tmp = a;
-    a = b;
-    b = tmp;
+    sync();
+    if (active) {
+      if (log_r == 2) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = lt + c * g, k = j & (ns - 1);
+          const int d = ((j >> log_ns) << (log_ns + 2)) + k;
+          float2* u = v + 4 * c;
+          if (k > 0) {  // k = 0: the twiddles are 1
+#pragma unroll
+            for (int q = 1; q < 4; ++q) {
+              float2 wq = __ldg(&tw[(q * k) << tw_shift]);
+              if (INV) wq.y = -wq.y;
+              u[q] = cmul(u[q], wq);
+            }
+          }
+          // forward: y1 = u0 - i u1 - u2 + i u3; the inverse flips the signs of i
+          const float2 s02 = make_float2(u[0].x + u[2].x, u[0].y + u[2].y);
+          const float2 d02 = make_float2(u[0].x - u[2].x, u[0].y - u[2].y);
+          const float2 s13 = make_float2(u[1].x + u[3].x, u[1].y + u[3].y);
+          const float2 d13 = make_float2(u[1].x - u[3].x, u[1].y - u[3].y);
+          const float2 rot = INV ? make_float2(-d13.y, d13.x) : make_float2(d13.y, -d13.x);  // -+ i d13
+          x[d] = make_float2(s02.x + s13.x, s02.y + s13.y);
+          x[d + ns] = make_float2(d02.x + rot.x, d02.y + rot.y);
+          x[d + 2 * ns] = make_float2(s02.x - s13.x, s02.y - s13.y);
+          x[d + 3 * ns] = make_float2(d02.x - rot.x, d02.y - rot.y);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = lt + c * g, k = j & (ns - 1);
+          const int d = ((j >> log_ns) << (log_ns + 1)) + k;
+          float2 u0 = v[2 * c], u1 = v[2 * c + 1];
+          if (k > 0) {
+            float2 w1 = __ldg(&tw[k << tw_shift]);
+            if (INV) w1.y = -w1.y;
+            u1 = cmul(u1, w1);
+          }
+          x[d] = make_float2(u0.x + u1.x, u0.y + u1.y);
+          x[d + ns] = make_float2(u0.x - u1.x, u0.y - u1.y);
+        }
+      }
+    }
+    sync();
     log_ns += log_r;
   }
-  return a;
 }
 
 struct Args {
@@ -238,16 +262,16 @@ struct Args {
 };
 
 // Shared memory of a block: the mbarrier, the spectrum (R x Wh complex), the
-// rows of w (R x W), two work buffers.
+// rows of w (R x W), the work buffer.
 inline size_t cluster_smem(int h, int w, int q) {
   const size_t r = h / q, wh = w / 2 + 1;
-  return 16 + r * wh * 8 + r * w * 4 + 2 * size_t{kWork} * 8;
+  return 16 + r * wh * 8 + r * w * 4 + size_t{kWork + kPad} * 8;
 }
 
-// Loops over a work buffer run kPer fixed steps of kThreads elements, so
+// Loops over the work buffer run kPer fixed steps of kThreads elements, so
 // that each thread issues all its loads before it stores (remote and device
 // loads have long latencies). At most 64 registers a thread, so that two
-// blocks of up to 512 threads fit an SM.
+// blocks of 512 threads fit an SM.
 __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_iteration(Args p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -260,8 +284,7 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
   auto bar = reinterpret_cast<uint64_t*>(smem);
   auto spec = reinterpret_cast<float2*>(smem + 16);       // [R][Wh]
   auto wk = reinterpret_cast<float*>(spec + R * wh);      // [R][W]
-  auto buf0 = reinterpret_cast<float2*>(wk + R * W);      // [kWork]
-  float2* buf1 = buf0 + kWork;                            // [kWork]
+  auto buf = reinterpret_cast<float2*>(wk + R * W);       // [kWork + kPad]
   float* zs = reinterpret_cast<float*>(spec) + 2 * R;     // [R][W], the tail of spec
 
   const int64_t row0 = b * H + static_cast<int64_t>(rank) * R;
@@ -285,14 +308,15 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
       const int e = tid + i * kThreads;
       if (e < (batch << p.log_w)) {
         const int o = (2 * p0 + 2 * (e >> p.log_w)) * W + (e & (W - 1));
-        buf0[e] = make_float2(zs[o] - wk[o], zs[o + W] - wk[o + W]);
+        buf[e] = make_float2(zs[o] - wk[o], zs[o + W] - wk[o + W]);
       }
     }
     __syncthreads();
-    const float2* c = fft<false>(buf0, buf1, p.log_w, log_batch, false, p.tw_w);
+    fft<false>(buf, p.log_w, batch, W, p.tw_w);
+    __syncthreads();
     for (int e = tid; e < batch * wh; e += kThreads) {
       const int pp = e / wh, k = e - pp * wh;
-      const float2 u = c[pp * W + k], m = c[pp * W + ((W - k) & (W - 1))];
+      const float2 u = buf[pp * W + k], m = buf[pp * W + ((W - k) & (W - 1))];
       // V_a = (u + conj(m)) / 2, V_b = (u - conj(m)) / 2i
       const int ra = 2 * (p0 + pp);
       spec[ra * wh + k] = make_float2(0.5f * (u.x + m.x), 0.5f * (u.y - m.y));
@@ -317,12 +341,14 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
   cluster.sync();
 
   // -- 2: column transforms and the blend, over this block's column slots ---
-  // in batches of a power of two (at most kWork / H)
-  const int log_cb = min(__ffs(nk) - 1, kLogWork - p.log_h);
-  const int cb = 1 << log_cb;
+  // in batches of a power of two (at most kWork / H and kPad); column cc of
+  // a batch at buf + cc (H + 1), the odd pitch keeping a warp's accesses
+  // along a row of the batch, and down a column, on distinct banks
+  const int log_cb = min(min(log_nk, kLogWork - p.log_h), 6);
+  const int cb = 1 << log_cb, pitch = H + 1;
   const float inv_h = 1.f / static_cast<float>(H);
   for (int c0 = 0; c0 < nk && ADMM_CLUSTER_PHASES >= 2; c0 += cb) {
-    const int k0 = s_first + c0;  // element (row hh, slot k0 + cc) at hh * cb + cc
+    const int k0 = s_first + c0;  // element (row hh, slot k0 + cc): e = hh cb + cc
     float2 g[kPer];
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
@@ -336,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int e = tid + i * kThreads;
-      if (e < (H << log_cb)) buf0[e] = g[i];
+      if (e < (H << log_cb)) buf[(e & (cb - 1)) * pitch + (e >> log_cb)] = g[i];
     }
     float av[kPer];
 #pragma unroll
@@ -346,15 +372,16 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
     }
     if (c0 == 0) cp_async_wait_all();
     __syncthreads();
-    float2* y = fft<false>(buf0, buf1, p.log_h, log_cb, true, p.tw_h);
-    float2* other = (y == buf0) ? buf1 : buf0;
+    fft<false>(buf, p.log_h, cb, pitch, p.tw_h);
+    __syncthreads();
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int e = tid + i * kThreads;
       const int cc = c0 + (e & (cb - 1));
       if (e < (H << log_cb) && s_first + cc) {
-        const int o = ((e >> log_cb) << log_nk) + cc;
-        y[e] = make_float2(av[i] * y[e].x + cs[o], av[i] * y[e].y + cs[(H << log_nk) + o]);
+        const int hh = e >> log_cb, o = (hh << log_nk) + cc;
+        float2& y = buf[(e & (cb - 1)) * pitch + hh];
+        y = make_float2(av[i] * y.x + cs[o], av[i] * y.y + cs[(H << log_nk) + o]);
       }
     }
     if (k0 == 0) {
@@ -364,7 +391,7 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
       // real part of its inverse is used; packed again as bin0 + i bin(W/2)
       for (int m = tid; m <= H / 2; m += kThreads) {
         const int mn = (H - m) & (H - 1);
-        const float2 fp = y[m << log_cb], fn = y[mn << log_cb];
+        const float2 fp = buf[m], fn = buf[mn];
         const float2 y0 = make_float2(0.5f * (fp.x + fn.x), 0.5f * (fp.y - fn.y));
         const float2 yn = make_float2(0.5f * (fp.y + fn.y), -0.5f * (fp.x - fn.x));
         const int64_t om = (b * H + m) * wh, on = (b * H + mn) * wh;
@@ -377,8 +404,8 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
         const float2 hnn = make_float2(an[W / 2] * yn.x + p.cr[on + W / 2], -an[W / 2] * yn.y + p.ci[on + W / 2]);
         const float2 e0 = make_float2(0.5f * (h0m.x + h0n.x), 0.5f * (h0m.y - h0n.y));
         const float2 en = make_float2(0.5f * (hnm.x + hnn.x), 0.5f * (hnm.y - hnn.y));
-        y[m << log_cb] = make_float2(e0.x - en.y, e0.y + en.x);
-        y[mn << log_cb] = make_float2(e0.x + en.y, en.x - e0.y);
+        buf[m] = make_float2(e0.x - en.y, e0.y + en.x);
+        buf[mn] = make_float2(e0.x + en.y, en.x - e0.y);
       }
     }
     __syncthreads();
@@ -387,18 +414,20 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
       mbar_expect_tx(bar, row_bytes);
       bulk_load(wk, p.w + row0 * W, row_bytes, bar);
     }
-    const float2* x = fft<true>(y, other, p.log_h, log_cb, true, p.tw_h);
+    fft<true>(buf, p.log_h, cb, pitch, p.tw_h);
+    __syncthreads();
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int e = tid + i * kThreads;
       if (e < (H << log_cb)) {
         const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
+        const float2 x = buf[(e & (cb - 1)) * pitch + hh];
         float2* dst = ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh / R)) + (hh % R) * wh;
         if (k) {
-          dst[k] = make_float2(x[e].x * inv_h, x[e].y * inv_h);
+          dst[k] = make_float2(x.x * inv_h, x.y * inv_h);
         } else {  // the real parts of the inverses of bins 0 and W/2
-          dst[0] = make_float2(x[e].x * inv_h, 0.f);
-          dst[W / 2] = make_float2(x[e].y * inv_h, 0.f);
+          dst[0] = make_float2(x.x * inv_h, 0.f);
+          dst[W / 2] = make_float2(x.y * inv_h, 0.f);
         }
       }
     }
@@ -427,17 +456,18 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
           xa.y = -xa.y;
           xb.y = -xb.y;
         }
-        buf0[e] = make_float2(xa.x - xb.y, xa.y + xb.x);  // X_a + i X_b
+        buf[e] = make_float2(xa.x - xb.y, xa.y + xb.x);  // X_a + i X_b
       }
     }
     __syncthreads();
-    const float2* xs = fft<true>(buf0, buf1, p.log_w, log_batch, false, p.tw_w);
+    fft<true>(buf, p.log_w, batch, W, p.tw_w);
+    __syncthreads();
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int e = tid + i * kThreads;
       if (e < (batch << p.log_w)) {
         const int rr = 2 * p0 + 2 * (e >> p.log_w), j = e & (W - 1);
-        const float2 v = xs[e];
+        const float2 v = buf[e];
         const float xa = fabsf(v.x * inv_w), xb = fabsf(v.y * inv_w);
         const float wa = wk[rr * W + j], wb = wk[(rr + 1) * W + j];
         const float za = soft(xa + wa, p.thr), zb = soft(xb + wb, p.thr);
@@ -484,7 +514,8 @@ const DeviceState& device_state(int* dev_out) {
 
 bool shape_ok(int h, int w, int q) {
   auto pow2 = [](int n) { return n > 0 && (n & (n - 1)) == 0; };
-  return pow2(h) && pow2(w) && w >= 8 && h <= kWork && w <= kWork && (q == 1 || q == 2 || q == 4 || q == 8) &&
+  return pow2(h) && pow2(w) && h >= 8 && w >= 8 && h <= kWork / 2 && w <= kWork / 2 &&
+         (q == 1 || q == 2 || q == 4 || q == 8) &&
          h >= 2 * q && w / 2 >= q;
 }
 

@@ -106,7 +106,8 @@ def reset_launches() -> None:
 # card; on the CPU it names the design an H100 would take.
 H100_SMEM = (232448, 233472, 1024)
 CLUSTER_SIZES = (1, 2, 4, 8)  # blocks per cluster, the portable sizes
-WORK = 2048  # complex values per work buffer (csrc: kWork); H and W are at most this
+WORK = 4096 + 64  # complex values of the work buffer (csrc: kWork + kPad)
+MAX_SIDE = 2048  # H and W at most (csrc: kWork / 2)
 
 
 def _pow2(n: int) -> bool:
@@ -116,20 +117,20 @@ def _pow2(n: int) -> bool:
 def cluster_smem(h: int, w: int, q: int) -> int:
     """Dynamic shared memory of one block of the cluster design (bytes): an
     mbarrier, its H/Q rows of the half spectrum (complex), its rows of w,
-    and two work buffers (``admm_iteration_cluster.cu``'s layout)."""
+    and its work buffer (``admm_iteration_cluster.cu``'s layout)."""
     r, wh = h // q, w // 2 + 1
-    return 16 + r * wh * 8 + r * w * 4 + 2 * WORK * 8
+    return 16 + r * wh * 8 + r * w * 4 + WORK * 8
 
 
 def cluster_size(h: int, w: int, smem=H100_SMEM) -> int:
     """Blocks per cluster for (H, W), or 0 where the cluster design does not
     take the shape. ``smem``: (block opt-in, SM, reserved per block) bytes.
 
-    The design takes H and W powers of two, 8 <= W, H <= 2048. Q is the smallest of
+    The design takes H and W powers of two, 8 <= H, W <= 2048. Q is the smallest of
     1, 2, 4, 8 (with at least two rows and one column slot a block) whose blocks fit
     two to an SM; failing that, the smallest whose block fits at all.
     """
-    if not (_pow2(h) and _pow2(w) and w >= 8 and h <= WORK and w <= WORK):
+    if not (_pow2(h) and _pow2(w) and 8 <= min(h, w) and max(h, w) <= MAX_SIDE):
         return 0
     block, sm, reserved = smem
     sizes = [q for q in CLUSTER_SIZES if h >= 2 * q and w // 2 >= q]
@@ -150,7 +151,7 @@ def pick_design(h: int, w: int, design=None, smem=H100_SMEM) -> tuple:
     if design == "cluster" and q == 0:
         raise ValueError(
             f"the cluster design does not take H={h}, W={w}: it needs H and W powers of two, "
-            f"8 <= W, H <= {WORK}, and a half spectrum that fits a cluster's shared memory"
+            f"8 <= H, W <= {MAX_SIDE}, and a half spectrum that fits a cluster's shared memory"
         )
     if design == "strips" or q == 0:
         return "strips", 0
