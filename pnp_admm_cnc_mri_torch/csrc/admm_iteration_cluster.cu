@@ -16,13 +16,14 @@
 // Bound: bytes. Reading z, w, Cr, Ci and writing z', w' moves 0.67 GB a step
 // at 512 x 256 x 256 (0.20 ms at 3.35 TB/s); the two half-spectrum FFTs, the
 // blend and the tail are about 3.1 GFLOP (0.05 ms on the CUDA cores), so
-// about 4.6 flops a byte against the card's ~20. The design therefore moves
-// each of those bytes once and keeps every intermediate on chip.
+// about 4.6 flops a byte against the card's ~20. The design keeps every
+// intermediate on chip and reads each input once, but w, which it reads
+// twice (0.81 GB a step) to make room for C.
 //
 // Design. A cluster of Q blocks (launched with cudaLaunchKernelEx; Q is
 // chosen by the caller from the device's shared memory, see
 // fused_dc.cluster_size) holds one image. Block r owns rows
-// [r R, (r + 1) R), R = H / Q:
+// [r R, (r + 1) R), R = H / Q, and W/2/Q column slots:
 //
 //   1 rows       one thread brings the block's rows of z and w into shared
 //                memory with cp.async.bulk, completing on an mbarrier. z
@@ -32,31 +33,36 @@
 //                overwrite z that is still to be read. Pairs of rows of
 //                v = z - w go through one complex FFT of length W each
 //                (v_a + i v_b), and are separated by conjugate symmetry into
-//                bins 0..Wh-1 of each row. w stays in shared memory.
+//                bins 0..Wh-1 of each row. Then w's buffer takes the Cr and
+//                Ci of the block's slots, by cp.async, while the cluster
+//                syncs and gathers.
 //   cluster.sync()
-//   2 columns    block r owns a run of the Wh bins (Wh = Q floor(Wh / Q) +
-//                rest, the first `rest` blocks take one more). For a batch
-//                of its columns it gathers the H values of each from the Q
-//                blocks' spectra through distributed shared memory, runs
-//                the forward FFT of length H, blends with A and C (read from
-//                device memory once each), runs the inverse FFT, divides by
-//                H, and writes the columns back where they came from. A
-//                column is read and written by its owner only.
+//   2 columns    the Wh bins make W/2 slots: bins 0 and W/2 are real after
+//                the row transforms and share slot 0 as bin0 + i bin(W/2).
+//                For a batch of its slots block r gathers the H values of
+//                each from the Q blocks' spectra through distributed shared
+//                memory, runs the forward FFT of length H, blends with A (an
+//                L2 hit, shared by all images) and C (slot 0: separated by
+//                conjugate symmetry, blended, and only the Hermitian part of
+//                each blend kept, the part whose inverse is real), runs the
+//                inverse FFT, divides by H, and writes the columns back
+//                where they came from. A column is read and written by its
+//                owner only. After the last blend w is loaded again, by
+//                cp.async.bulk, for phase 3.
 //   cluster.sync()
-//   3 synthesis  pairs of rows again: the imaginary parts of bins 0 and W/2
-//                are dropped (they are not Hermitian after the blend, and
-//                the reference weighs their real parts once), the half
+//   3 synthesis  pairs of rows again: bins 0 and W/2 are real (the
+//                reference weighs only their real parts, once), the half
 //                spectrum is extended by conjugate symmetry, X_a + i X_b
 //                goes through one inverse complex FFT, and its real and
 //                imaginary parts are the two rows times W. Then / W, |.|,
-//                soft and the dual with the w kept in phase 1; z' and w'
-//                are written once.
+//                soft and the dual; z' and w' are written once.
 //
-// FFTs: Stockham autosort, radix-4 stages and one radix-2 stage where
-// log2(n) is odd, each thread's butterfly in registers and the exchanges in
-// shared memory between two work buffers. Twiddles come from a table
-// exp(-2 pi i t / n), t in [0, n), built once by the caller in double
-// precision from integer t; the inverse takes its conjugate. No __sinf.
+// FFTs: Stockham autosort in place, radix-4 stages and one radix-2 stage
+// where log2(n) is odd. A sequence belongs to n/8 threads, each with 8
+// elements in registers a stage, so up to n = 256 a stage syncs one warp,
+// not the block. Twiddles come from a table exp(-2 pi i t / n), t in [0, n),
+// built once by the caller in double precision from integer t; the inverse
+// takes its conjugate. No __sinf.
 //
 // Numerics: built without --fmad=false (held to a tolerance against the
 // dense-DFT plain version, not bit for bit). The divisions by H and W come
@@ -349,26 +355,24 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
   const float inv_h = 1.f / static_cast<float>(H);
   for (int c0 = 0; c0 < nk && ADMM_CLUSTER_PHASES >= 2; c0 += cb) {
     const int k0 = s_first + c0;  // element (row hh, slot k0 + cc): e = hh cb + cc
-    float2 g[kPer];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < (H << log_cb)) {
-        const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
-        const float2* src = ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh / R)) + (hh % R) * wh;
-        g[i] = k ? src[k] : make_float2(src[0].x, src[W / 2].x);
+    for (int half = 0; half < 2; ++half) {  // in halves, to keep the loads in registers
+      float2 g[kPer / 2];
+#pragma unroll
+      for (int i = 0; i < kPer / 2; ++i) {
+        const int e = tid + (half * kPer / 2 + i) * kThreads;
+        if (e < (H << log_cb)) {
+          const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
+          const float2* src =
+              ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh / R)) + (hh % R) * wh;
+          g[i] = k ? src[k] : make_float2(src[0].x, src[W / 2].x);
+        }
       }
-    }
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < (H << log_cb)) buf[(e & (cb - 1)) * pitch + (e >> log_cb)] = g[i];
-    }
-    float av[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {  // A is shared by all images: an L2 hit
-      const int e = tid + i * kThreads;
-      if (e < (H << log_cb)) av[i] = p.a[static_cast<int64_t>(e >> log_cb) * wh + k0 + (e & (cb - 1))];
+      for (int i = 0; i < kPer / 2; ++i) {
+        const int e = tid + (half * kPer / 2 + i) * kThreads;
+        if (e < (H << log_cb)) buf[(e & (cb - 1)) * pitch + (e >> log_cb)] = g[i];
+      }
     }
     if (c0 == 0) cp_async_wait_all();
     __syncthreads();
@@ -380,8 +384,9 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
       const int cc = c0 + (e & (cb - 1));
       if (e < (H << log_cb) && s_first + cc) {
         const int hh = e >> log_cb, o = (hh << log_nk) + cc;
+        const float av = __ldg(&p.a[static_cast<int64_t>(hh) * wh + s_first + cc]);  // an L2 hit
         float2& y = buf[(e & (cb - 1)) * pitch + hh];
-        y = make_float2(av[i] * y.x + cs[o], av[i] * y.y + cs[(H << log_nk) + o]);
+        y = make_float2(av * y.x + cs[o], av * y.y + cs[(H << log_nk) + o]);
       }
     }
     if (k0 == 0) {
