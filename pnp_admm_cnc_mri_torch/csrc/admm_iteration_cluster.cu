@@ -104,6 +104,9 @@ namespace {
 #ifndef ADMM_CLUSTER_SHORTCUT
 #define ADMM_CLUSTER_SHORTCUT 0
 #endif
+#ifndef ADMM_CLUSTER_FFT_INLINE
+#define ADMM_CLUSTER_FFT_INLINE
+#endif
 #ifndef ADMM_CLUSTER_MIN_BLOCKS
 #define ADMM_CLUSTER_MIN_BLOCKS (1024 / ADMM_CLUSTER_THREADS)
 #endif
@@ -176,7 +179,8 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 // warp, the block's barrier otherwise. Every thread of the block calls it
 // (threads past count * n / 8 only take part in the syncs).
 template <bool INV>
-__device__ void fft(float2* a, int log_n, int count, int pitch, const float2* __restrict__ tw) {
+__device__ ADMM_CLUSTER_FFT_INLINE void fft(float2* a, int log_n, int count, int pitch,
+                                            const float2* __restrict__ tw) {
   const int log_g = log_n - 3;  // threads a sequence
   const int g = 1 << log_g;
   const int s = threadIdx.x >> log_g, lt = threadIdx.x & (g - 1);
@@ -378,11 +382,10 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
     __syncthreads();
     fft<false>(buf, p.log_h, cb, pitch, p.tw_h);
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kThreads;
+#pragma unroll 1
+    for (int e = tid; e < (H << log_cb); e += kThreads) {
       const int cc = c0 + (e & (cb - 1));
-      if (e < (H << log_cb) && s_first + cc) {
+      if (s_first + cc) {
         const int hh = e >> log_cb, o = (hh << log_nk) + cc;
         const float av = __ldg(&p.a[static_cast<int64_t>(hh) * wh + s_first + cc]);  // an L2 hit
         float2& y = buf[(e & (cb - 1)) * pitch + hh];
@@ -421,10 +424,9 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
     }
     fft<true>(buf, p.log_h, cb, pitch, p.tw_h);
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < (H << log_cb)) {
+#pragma unroll 1
+    for (int e = tid; e < (H << log_cb); e += kThreads) {
+      {
         const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
         const float2 x = buf[(e & (cb - 1)) * pitch + hh];
         float2* dst = ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh / R)) + (hh % R) * wh;

@@ -5,14 +5,15 @@
                                           the float32 plain step against a
                                           float64 plain step, at the card
                                           tests' shapes
-    python3 probes/k3_probe.py time [NAME=T,P,S,M ...]
+    python3 probes/k3_probe.py time [NAME=T,P,S,M,I ...]
                                           the cluster step at 512 x 256 x 256
                                           built with the kernel's -D
                                           ADMM_CLUSTER_THREADS=T,
                                           ADMM_CLUSTER_PHASES=P (P < 3 stops
                                           after that phase) and
                                           ADMM_CLUSTER_SHORTCUT=S,
-                                          _MIN_BLOCKS=M (a prefix of them;
+                                          _MIN_BLOCKS=M, _FFT_INLINE=I
+                                          (e.g. __noinline__) (a prefix of them;
                                           the rest and NAME alone take the
                                           source's defaults), timed in turns
                                           (forward, then backward), with the
@@ -87,7 +88,7 @@ def cuda_ms(fn, reps=5, inner=5):
     return statistics.median(times)
 
 
-KNOBS = ("THREADS", "PHASES", "SHORTCUT", "MIN_BLOCKS")
+KNOBS = ("THREADS", "PHASES", "SHORTCUT", "MIN_BLOCKS", "FFT_INLINE")
 
 
 def build_variant(name, *values):
@@ -109,7 +110,7 @@ def time_variants(dev, specs):
     variants = {}
     for spec in specs or ["default"]:
         name, _, vals = spec.partition("=")
-        values = [int(v) for v in vals.split(",")] if vals else []
+        values = vals.split(",") if vals else []
         path, regs = build_variant(name, *values)
         regs = [vals or "source defaults", *regs]
         fused_dc._CLUSTER_LIB = None
