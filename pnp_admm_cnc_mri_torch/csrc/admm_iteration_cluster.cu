@@ -87,34 +87,25 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// Threads a block (512: a Stockham stage of a full work buffer is 8
-// elements a thread), and the complex values of the block's work buffer
-// (kWork, and kPad more for the columns' padded pitch); H and W are at most
-// kWork / 2. A probe build may set the threads, and may stop
-// after phase 0 (the loads), 1 or 2 and then write w as z' and w', to time
-// the phases by difference (probes/k3_probe.py); the library runs all 3.
-#ifndef ADMM_CLUSTER_THREADS
-#define ADMM_CLUSTER_THREADS 512
-#endif
-#ifndef ADMM_CLUSTER_PHASES
-#define ADMM_CLUSTER_PHASES 3
-#endif
-// probe only (wrong results): 1 gathers and scatters in the block's own
-// spectrum
-#ifndef ADMM_CLUSTER_SHORTCUT
-#define ADMM_CLUSTER_SHORTCUT 0
-#endif
-#ifndef ADMM_CLUSTER_FFT_INLINE
-#define ADMM_CLUSTER_FFT_INLINE
-#endif
-#ifndef ADMM_CLUSTER_MIN_BLOCKS
-#define ADMM_CLUSTER_MIN_BLOCKS (1024 / ADMM_CLUSTER_THREADS)
-#endif
-constexpr int kThreads = ADMM_CLUSTER_THREADS;
+// Threads a block, and the complex values of the block's work buffer (kWork,
+// and kPad more for the columns' padded pitch): a batch of FFTs fills the
+// buffer at 8 elements a thread. H and W are at most kWork / 2.
+constexpr int kThreads = 512;
 constexpr int kLogWork = 12;
 constexpr int kWork = 1 << kLogWork;
 constexpr int kPad = 64;
 constexpr int kPer = kWork / kThreads;  // work-buffer elements a thread
+static_assert(kPer == 8, "fft() gives each thread 8 elements of a full buffer");
+// Probe builds only (probes/k3_probe.py), to time the phases by difference:
+// ADMM_CLUSTER_PHASES = 0, 1 or 2 stops after that phase and writes w as z'
+// and w'; ADMM_CLUSTER_SHORTCUT = 1 gathers and scatters the columns in the
+// block's own spectrum. Both give wrong results; the library runs as below.
+#ifndef ADMM_CLUSTER_PHASES
+#define ADMM_CLUSTER_PHASES 3
+#endif
+#ifndef ADMM_CLUSTER_SHORTCUT
+#define ADMM_CLUSTER_SHORTCUT 0
+#endif
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float soft(float v, float c) {
@@ -179,8 +170,7 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 // warp, the block's barrier otherwise. Every thread of the block calls it
 // (threads past count * n / 8 only take part in the syncs).
 template <bool INV>
-__device__ ADMM_CLUSTER_FFT_INLINE void fft(float2* a, int log_n, int count, int pitch,
-                                            const float2* __restrict__ tw) {
+__device__ void fft(float2* a, int log_n, int count, int pitch, const float2* __restrict__ tw) {
   const int log_g = log_n - 3;  // threads a sequence
   const int g = 1 << log_g;
   const int s = threadIdx.x >> log_g, lt = threadIdx.x & (g - 1);
@@ -278,16 +268,16 @@ inline size_t cluster_smem(int h, int w, int q) {
   return 16 + r * wh * 8 + r * w * 4 + size_t{kWork + kPad} * 8;
 }
 
-// Loops over the work buffer run kPer fixed steps of kThreads elements, so
-// that each thread issues all its loads before it stores (remote and device
-// loads have long latencies). At most 64 registers a thread, so that two
-// blocks of 512 threads fit an SM.
-__global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_iteration(Args p) {
+// At most 64 registers a thread, so that two blocks fit an SM. Loops that
+// read shared memory of other blocks, or device memory, before they store
+// are unrolled (kPer fixed steps of kThreads elements), so that a thread's
+// loads are in flight together.
+__global__ void __launch_bounds__(kThreads, 2) cluster_iteration(Args p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int64_t b = blockIdx.x / p.q;
   const int H = 1 << p.log_h, W = 1 << p.log_w, wh = W / 2 + 1;
-  const int R = H / p.q;
+  const int R = H / p.q, log_r = __ffs(R) - 1;
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -324,13 +314,15 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
     __syncthreads();
     fft<false>(buf, p.log_w, batch, W, p.tw_w);
     __syncthreads();
-    for (int e = tid; e < batch * wh; e += kThreads) {
-      const int pp = e / wh, k = e - pp * wh;
-      const float2 u = buf[pp * W + k], m = buf[pp * W + ((W - k) & (W - 1))];
-      // V_a = (u + conj(m)) / 2, V_b = (u - conj(m)) / 2i
-      const int ra = 2 * (p0 + pp);
-      spec[ra * wh + k] = make_float2(0.5f * (u.x + m.x), 0.5f * (u.y - m.y));
-      spec[(ra + 1) * wh + k] = make_float2(0.5f * (u.y + m.y), -0.5f * (u.x - m.x));
+    for (int e = tid; e < (batch << (p.log_w - 1)); e += kThreads) {
+      const int pp = e >> (p.log_w - 1), ra = 2 * (p0 + pp);
+      // bins k < W/2, and W/2 with k = 0: V_a = (u + conj(m)) / 2, V_b = (u - conj(m)) / 2i
+      for (int k = e & (W / 2 - 1), last = k ? k : W / 2;; k = last) {
+        const float2 u = buf[pp * W + k], m = buf[pp * W + ((W - k) & (W - 1))];
+        spec[ra * wh + k] = make_float2(0.5f * (u.x + m.x), 0.5f * (u.y - m.y));
+        spec[(ra + 1) * wh + k] = make_float2(0.5f * (u.y + m.y), -0.5f * (u.x - m.x));
+        if (k == last) break;
+      }
     }
     __syncthreads();
   }
@@ -368,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
         if (e < (H << log_cb)) {
           const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
           const float2* src =
-              ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh / R)) + (hh % R) * wh;
+              ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh >> log_r)) + (hh & (R - 1)) * wh;
           g[i] = k ? src[k] : make_float2(src[0].x, src[W / 2].x);
         }
       }
@@ -429,7 +421,7 @@ __global__ void __launch_bounds__(kThreads, ADMM_CLUSTER_MIN_BLOCKS) cluster_ite
       {
         const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
         const float2 x = buf[(e & (cb - 1)) * pitch + hh];
-        float2* dst = ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh / R)) + (hh % R) * wh;
+        float2* dst = ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh >> log_r)) + (hh & (R - 1)) * wh;
         if (k) {
           dst[k] = make_float2(x.x * inv_h, x.y * inv_h);
         } else {  // the real parts of the inverses of bins 0 and W/2

@@ -5,17 +5,14 @@
                                           the float32 plain step against a
                                           float64 plain step, at the card
                                           tests' shapes
-    python3 probes/k3_probe.py time [NAME=T,P,S,M,I ...]
-                                          the cluster step at 512 x 256 x 256
-                                          built with the kernel's -D
-                                          ADMM_CLUSTER_THREADS=T,
-                                          ADMM_CLUSTER_PHASES=P (P < 3 stops
-                                          after that phase) and
-                                          ADMM_CLUSTER_SHORTCUT=S,
-                                          _MIN_BLOCKS=M, _FFT_INLINE=I
-                                          (e.g. __noinline__) (a prefix of them;
-                                          the rest and NAME alone take the
-                                          source's defaults), timed in turns
+    python3 probes/k3_probe.py time [NAME[=P[,S]] ...]
+                                          the cluster step at 512 x 256 x 256,
+                                          each NAME built with the kernel's
+                                          probe knobs -D ADMM_CLUSTER_PHASES=P
+                                          (P < 3 stops after phase P) and
+                                          ADMM_CLUSTER_SHORTCUT=S (1: no
+                                          distributed shared memory), or with
+                                          the source's defaults, timed in turns
                                           (forward, then backward), with the
                                           cuFFT path's iteration beside them
 
@@ -88,7 +85,7 @@ def cuda_ms(fn, reps=5, inner=5):
     return statistics.median(times)
 
 
-KNOBS = ("THREADS", "PHASES", "SHORTCUT", "MIN_BLOCKS", "FFT_INLINE")
+KNOBS = ("PHASES", "SHORTCUT")
 
 
 def build_variant(name, *values):
