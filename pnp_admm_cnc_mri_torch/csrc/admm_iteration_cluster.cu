@@ -314,15 +314,13 @@ __global__ void __launch_bounds__(kThreads, 2) cluster_iteration(Args p) {
     __syncthreads();
     fft<false>(buf, p.log_w, batch, W, p.tw_w);
     __syncthreads();
-    for (int e = tid; e < (batch << (p.log_w - 1)); e += kThreads) {
-      const int pp = e >> (p.log_w - 1), ra = 2 * (p0 + pp);
-      // bins k < W/2, and W/2 with k = 0: V_a = (u + conj(m)) / 2, V_b = (u - conj(m)) / 2i
-      for (int k = e & (W / 2 - 1), last = k ? k : W / 2;; k = last) {
-        const float2 u = buf[pp * W + k], m = buf[pp * W + ((W - k) & (W - 1))];
-        spec[ra * wh + k] = make_float2(0.5f * (u.x + m.x), 0.5f * (u.y - m.y));
-        spec[(ra + 1) * wh + k] = make_float2(0.5f * (u.y + m.y), -0.5f * (u.x - m.x));
-        if (k == last) break;
-      }
+    for (int e = tid; e < batch * wh; e += kThreads) {
+      const int pp = e / wh, k = e - pp * wh;
+      const float2 u = buf[pp * W + k], m = buf[pp * W + ((W - k) & (W - 1))];
+      // V_a = (u + conj(m)) / 2, V_b = (u - conj(m)) / 2i
+      const int ra = 2 * (p0 + pp);
+      spec[ra * wh + k] = make_float2(0.5f * (u.x + m.x), 0.5f * (u.y - m.y));
+      spec[(ra + 1) * wh + k] = make_float2(0.5f * (u.y + m.y), -0.5f * (u.x - m.x));
     }
     __syncthreads();
   }
