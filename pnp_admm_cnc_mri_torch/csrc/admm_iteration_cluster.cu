@@ -269,15 +269,15 @@ inline size_t cluster_smem(int h, int w, int q) {
 }
 
 // At most 64 registers a thread, so that two blocks fit an SM. Loops that
-// read shared memory of other blocks, or device memory, before they store
-// are unrolled (kPer fixed steps of kThreads elements), so that a thread's
-// loads are in flight together.
+// read shared memory of other blocks before they store are unrolled (kPer
+// fixed steps of kThreads elements), so that a thread's loads are in flight
+// together.
 __global__ void __launch_bounds__(kThreads, 2) cluster_iteration(Args p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int64_t b = blockIdx.x / p.q;
   const int H = 1 << p.log_h, W = 1 << p.log_w, wh = W / 2 + 1;
-  const int R = H / p.q, log_r = __ffs(R) - 1;
+  const int R = H / p.q;
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -358,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, 2) cluster_iteration(Args p) {
         if (e < (H << log_cb)) {
           const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
           const float2* src =
-              ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh >> log_r)) + (hh & (R - 1)) * wh;
+              ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh / R)) + (hh % R) * wh;
           g[i] = k ? src[k] : make_float2(src[0].x, src[W / 2].x);
         }
       }
@@ -419,7 +419,7 @@ __global__ void __launch_bounds__(kThreads, 2) cluster_iteration(Args p) {
       {
         const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
         const float2 x = buf[(e & (cb - 1)) * pitch + hh];
-        float2* dst = ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh >> log_r)) + (hh & (R - 1)) * wh;
+        float2* dst = ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh / R)) + (hh % R) * wh;
         if (k) {
           dst[k] = make_float2(x.x * inv_h, x.y * inv_h);
         } else {  // the real parts of the inverses of bins 0 and W/2
