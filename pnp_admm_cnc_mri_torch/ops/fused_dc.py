@@ -126,9 +126,10 @@ def cluster_size(h: int, w: int, smem=H100_SMEM) -> int:
     """Blocks per cluster for (H, W), or 0 where the cluster design does not
     take the shape. ``smem``: (block opt-in, SM, reserved per block) bytes.
 
-    The design takes H and W powers of two, 8 <= H, W <= 2048. Q is the smallest of
-    1, 2, 4, 8 (with at least two rows and one column slot a block) whose blocks fit
-    two to an SM; failing that, the smallest whose block fits at all.
+    The design takes H and W powers of two, 8 <= H, W <= 2048. Q is the
+    smallest of 1, 2, 4, 8 (with at least two rows and one column slot a
+    block) whose blocks fit two to an SM; failing that, the smallest whose
+    block fits at all.
     """
     if not (_pow2(h) and _pow2(w) and 8 <= min(h, w) and max(h, w) <= MAX_SIDE):
         return 0
