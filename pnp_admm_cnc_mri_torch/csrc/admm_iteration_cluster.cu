@@ -416,16 +416,14 @@ __global__ void __launch_bounds__(kThreads, 2) cluster_iteration(Args p) {
     __syncthreads();
 #pragma unroll 1
     for (int e = tid; e < (H << log_cb); e += kThreads) {
-      {
-        const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
-        const float2 x = buf[(e & (cb - 1)) * pitch + hh];
-        float2* dst = ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh / R)) + (hh % R) * wh;
-        if (k) {
-          dst[k] = make_float2(x.x * inv_h, x.y * inv_h);
-        } else {  // the real parts of the inverses of bins 0 and W/2
-          dst[0] = make_float2(x.x * inv_h, 0.f);
-          dst[W / 2] = make_float2(x.y * inv_h, 0.f);
-        }
+      const int hh = e >> log_cb, k = k0 + (e & (cb - 1));
+      const float2 x = buf[(e & (cb - 1)) * pitch + hh];
+      float2* dst = ((ADMM_CLUSTER_SHORTCUT & 1) ? spec : cluster.map_shared_rank(spec, hh / R)) + (hh % R) * wh;
+      if (k) {
+        dst[k] = make_float2(x.x * inv_h, x.y * inv_h);
+      } else {  // the real parts of the inverses of bins 0 and W/2
+        dst[0] = make_float2(x.x * inv_h, 0.f);
+        dst[W / 2] = make_float2(x.y * inv_h, 0.f);
       }
     }
     __syncthreads();
