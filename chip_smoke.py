@@ -30,6 +30,17 @@ Phases, each timed and each fatal on failure:
            are on the path only for shapes the cluster kernel does not take),
            against the unfused matmul solver and the fused fft solve, and at
            2 x 300 x 256 x 5 (4 strip launches);
+- pnp:     builds DRUNet (nc 64..512, nb 4) and DnCNN (nb 17) at full width
+           with seeded weights; holds the DRUNet forward (batch 1) and a
+           4-iteration PnP-CNC solve (batch 2) in float32 against float64 on
+           the card, with cuDNN's TF32 on in the process (the denoisers turn
+           it off for their forwards); drives ``pnp_admm_cnc`` with DRUNet in
+           both slots (``PNP_CNC_DEFAULTS["drunet_gray"]``) and
+           ``pnp_admm_l1`` with DnCNN, 4 x 256 x 256 x 50, with the classical
+           kernels' counts set to 0 just before and read just after (they
+           stay 0: no Pallas kernel of the JAX package is on this path);
+           times both solves, the forwards and the data-consistency solve,
+           and the forward's rate from its layer shapes;
 - timing:  CUDA-event medians of the solves, of each tail kernel against its
            plain version and its bound, and of the two designs' steps and
            the cuFFT path's iteration on the same state, in turns.
@@ -50,11 +61,18 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, H, W, ITERS = 512, 256, 256, 50
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+PNP_B = 4  # the PnP phase's batch
+# PnP phase, float32 against float64 on the card with cuDNN's TF32 off: the
+# DRUNet forward showed 5.1e-7 and the 4-iteration PnP-CNC solve 3.7e-6 (PERF.md);
+# the forward with TF32 on errs 2.7e-4, which the first limit refuses
+DRUNET_ATOL = 5e-6
+PNP_ATOL = 5e-5
 FUSED_ATOL = 1e-5  # fused step vs plain: 256-term float32 sums, FMA vs cuBLAS; soft is 1-Lipschitz
 # Operations per element of each tail (adds, multiplies, compares), and the
 # float planes each moves (inputs read once, outputs written once).
@@ -104,6 +122,29 @@ def cuda_ms(fn, reps: int = 5, inner: int = 1, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def conv_flops(denoise, v) -> int:
+    """Operations of the convolutions in one ``denoise(v, 0)``, from the
+    layer shapes: 2 per multiply-add, counted over each conv's outputs (each
+    transposed conv's inputs)."""
+    import torch
+
+    total = 0
+
+    def hook(m, inputs, out):
+        nonlocal total
+        k = m.weight[0].numel()  # in/groups x kH x kW for a conv, out x kH x kW for a transposed conv
+        total += 2 * k * (out.numel() if isinstance(m, torch.nn.Conv2d) else inputs[0].numel())
+
+    handles = [m.register_forward_hook(hook) for m in denoise.model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    try:
+        denoise(v, 0)
+    finally:
+        for h_ in handles:
+            h_.remove()
+    return total
+
+
 def same(got, ref, what: str) -> float:
     """Exact agreement of two tensor tuples, NaN where NaN; returns the max
     absolute error over the other entries (0.0 when they agree; an infinity
@@ -149,8 +190,10 @@ def main() -> dict:
         raise SystemExit("chip_smoke: the package pnp_admm_cnc_mri_torch is not next to this script")
     sys.path.insert(0, ROOT)
     from pnp_admm_cnc_mri_torch import ADMM_CNC_DEFAULT, ADMM_L1_DEFAULT, ADMMConfig
+    from pnp_admm_cnc_mri_torch.config import PNP_CNC_DEFAULTS, PNP_L1_DEFAULTS
     from pnp_admm_cnc_mri_torch.data import masks, noise, phantom
     from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, metrics, tail_kernels
+    from pnp_admm_cnc_mri_torch.priors import denoiser
     from pnp_admm_cnc_mri_torch.solvers import admm
 
     smi = subprocess.run(
@@ -422,6 +465,88 @@ def main() -> dict:
         f"512x256x256; {json.dumps(by_300)} at 2x300x256 (x within {d300:.3g} of the matmul solver); "
         f"quality {json.dumps(quality['admm_l1_fused_kernel'])}")
     phase("fused_iteration", t)
+
+    # -- PnP: DRUNet-CNC and DnCNN-L1 at full width, seeded weights ------------
+    t = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the seeded random init warns
+        drunet = {dt: denoiser.build_denoiser("drunet_gray", iter_num=ITERS, param_dtype=dt, device=dev)
+                  for dt in (torch.float32, torch.float64)}
+        dncnn = denoiser.build_denoiser("dncnn_25", iter_num=ITERS, device=dev)
+    check(torch.backends.cudnn.allow_tf32, "TF32 was already off for cuDNN: the checks below would prove nothing")
+    alpha, _, lam, rho, b_cnc = PNP_CNC_DEFAULTS["drunet_gray"]
+    cfg_cnc = ADMMConfig(iter_num=ITERS, rho=rho, lam=lam, alpha=alpha, b=b_cnc)
+    cfg_pnp_l1 = ADMMConfig(iter_num=ITERS, rho=PNP_L1_DEFAULTS["dncnn_25"][1])
+    y4, img4 = y[:PNP_B].contiguous(), img[:PNP_B]
+    # the forward, float32 against float64, batch 1, the first and last rungs of the sigma ladder
+    v1 = img[:1].contiguous()
+    fwd_err = max(float((drunet[torch.float32](v1, i).double() - drunet[torch.float64](v1.double(), i)).abs().max())
+                  for i in (0, ITERS - 1))
+    check(fwd_err < DRUNET_ATOL, f"DRUNet forward float32 vs float64: {fwd_err}")
+    # a 4-iteration PnP-CNC solve, float32 against float64, batch 2
+    cfg_4 = ADMMConfig(iter_num=4, rho=rho, lam=lam, alpha=alpha, b=b_cnc)
+    s32 = admm.pnp_admm_cnc(y[:2], mask, cfg_4, drunet[torch.float32])[0]
+    s64 = admm.pnp_admm_cnc(y[:2].to(torch.complex128), mask, cfg_4, drunet[torch.float64], dtype=torch.float64)[0]
+    solve_err = max(float((a_.double() - r_).abs().max()) for a_, r_ in zip(s32, s64))
+    check(solve_err < PNP_ATOL, f"PnP-CNC 4 iterations float32 vs float64: {solve_err}")
+    # the path: the classical kernels' counts set to 0 just before, read just after
+    torch.cuda.synchronize()
+    tail_kernels.reset_launches()
+    fused_dc.reset_launches()
+    pnp = {"pnp_admm_cnc_drunet": admm.pnp_admm_cnc(y4, mask, cfg_cnc, drunet[torch.float32])[0],
+           "pnp_admm_l1_dncnn": admm.pnp_admm_l1(y4, mask, cfg_pnp_l1, dncnn)[0]}
+    torch.cuda.synchronize()
+    pnp_launches = {"l1_tail": tail_kernels.l1_tail.launches, "cnc_tail": tail_kernels.cnc_tail.launches,
+                    "fused_iteration": fused_dc.fused_iteration.launches}
+    check(pnp_launches == dict.fromkeys(pnp_launches, 0), f"the PnP path launched a classical kernel: {pnp_launches}")
+    pnp_quality = {}
+    for k, st in pnp.items():
+        for name, a_ in zip("xzw", st):
+            check(tuple(a_.shape) == (PNP_B, H, W) and a_.dtype == torch.float32, f"{k}: {name} is {a_.dtype} "
+                  f"{tuple(a_.shape)}")
+            check(bool(torch.isfinite(a_).all()) and float(a_.min()) >= 0.0 and float(a_.max()) <= 1.0,
+                  f"{k}: {name} not finite or outside [0, 1]")
+        pnp_quality[k] = float(metrics.psnr(st.x * 255.0, img4 * 255.0).mean())
+    log(f"pnp: DRUNet (nc 64..512, nb 4) forward float32 vs float64 {fwd_err:.3g} (batch 1, rungs 0 and "
+        f"{ITERS - 1}; tolerance {DRUNET_ATOL:g}); PnP-CNC 4 iterations float32 vs float64 {solve_err:.3g} (batch 2; "
+        f"tolerance {PNP_ATOL:g}); "
+        f"outputs finite and in [0, 1]; classical kernel launches on the PnP path {json.dumps(pnp_launches)}; "
+        f"mean PSNR with random weights (no quality claim) {json.dumps(pnp_quality)}")
+    # timing: the solves, the forward at the solve's batch, and the rest of an iteration
+    v4 = img4.contiguous()
+    flops = conv_flops(drunet[torch.float32], v4)
+    pnp_ms = {
+        "pnp_admm_cnc_drunet_solve": cuda_ms(lambda: admm.pnp_admm_cnc(y4, mask, cfg_cnc, drunet[torch.float32]),
+                                             reps=3, warmup=0),
+        "pnp_admm_l1_dncnn_solve": cuda_ms(lambda: admm.pnp_admm_l1(y4, mask, cfg_pnp_l1, dncnn), reps=3, warmup=0),
+        "drunet_forward": cuda_ms(lambda: drunet[torch.float32](v4, 0), reps=5, inner=2),
+        "dncnn_forward": cuda_ms(lambda: dncnn(v4, 0), reps=5, inner=5),
+    }
+    # the rest of an iteration: the same solve with the identity in both slots
+    pnp_ms["pnp_admm_cnc_identity_solve"] = cuda_ms(lambda: admm.pnp_admm_cnc(y4, mask, cfg_cnc, lambda v, i: v),
+                                                    reps=5)
+    dc4 = fourier.make_rfft_data_consistency(y4, mask, rho, method="fft")
+    st = pnp["pnp_admm_cnc_drunet"]
+    pnp_ms["dc_solve"] = cuda_ms(lambda: dc4(st.z - st.w), reps=5, inner=20)
+    per_iter = pnp_ms["pnp_admm_cnc_drunet_solve"] / ITERS
+    rest = pnp_ms["pnp_admm_cnc_identity_solve"] / ITERS
+    # the network alone with cuDNN's TF32 on (the process default, which the
+    # port does not use), for information: its error against float64 and its time
+    x2 = torch.cat([v4[:, None], torch.full_like(v4[:, None], 49.0 / 255.0)], dim=1)
+    tf32_err = float((drunet[torch.float32].model(x2[:1]).double()
+                      - drunet[torch.float64].model(x2[:1].double())).abs().max())
+    tf32_ms = cuda_ms(lambda: drunet[torch.float32].model(x2), reps=5, inner=2)
+    log(f"timing pnp ({PNP_B} x {H} x {W}, {ITERS} iterations, CUDA-event medians, ms): {json.dumps(pnp_ms)}; "
+        f"PnP-CNC {per_iter:.3f} ms an iteration; 2 DRUNet forwards {2 * pnp_ms['drunet_forward']:.3f} "
+        f"({2 * pnp_ms['drunet_forward'] / per_iter:.1%}); the iteration without them (identity denoisers) "
+        f"{rest:.3f} ({rest / per_iter:.1%}), of which the DC solve {pnp_ms['dc_solve']:.3f}; "
+        f"DRUNet forward {flops / 1e9:.1f} GFLOP "
+        f"at batch {PNP_B} ({flops / PNP_B / 1e9:.1f} a {H}x{W} image, convolutions only) = "
+        f"{flops / (pnp_ms['drunet_forward'] * 1e-3) / 1e12:.2f} TFLOP/s, "
+        f"{flops / (pnp_ms['drunet_forward'] * 1e-3) / FP32_FLOPS:.1%} of the {FP32_FLOPS / 1e12:.0f} TFLOP/s float32 "
+        f"peak; with cuDNN's TF32 on (not used by the port): {tf32_ms:.3f} ms, error vs float64 {tf32_err:.3g}")
+    del pnp, s32, s64, st, drunet, dncnn, dc4
+    phase("pnp", t)
 
     # -- timing ----------------------------------------------------------------
     t = time.perf_counter()

@@ -1,5 +1,6 @@
-"""Solver configuration: a copy of the JAX package's ``config.py:16-72``
-restricted to what the classical ADMM slice uses."""
+"""Solver configuration: a copy of the JAX package's ``config.py:16-102``
+restricted to what the classical and PnP-ADMM solvers use (the FISTA, HQS,
+RED and consensus tables come with those solvers)."""
 
 from __future__ import annotations
 
@@ -24,5 +25,59 @@ class ADMMConfig:
     tol: Optional[float] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class DenoiserConfig:
+    """Configuration of a learned denoiser prior (reference 【3】/【6】)."""
+
+    model_name: str = "dncnn_25"
+    noise_level_model: float = 15.0  # on the [0,255] scale
+    x8: bool = False  # dihedral self-ensemble
+    # sigma ladder (DRUNet / IRCNN), reference ``utils/utils_pnp.py:14-23``
+    model_sigma1: float = 49.0
+    model_sigma2: Optional[float] = None  # default: noise_level_model
+
+
+# Reference per-model defaults for PnP-ADMM-L1-D (reference
+# ``【3】PNP_ADMM_L1_D  .py:339-348``): (iter_num, rho)
+PNP_L1_DEFAULTS = {
+    "fdncnn_gray": (50, 0.25),
+    "dncnn_15": (50, 0.15),
+    "dncnn_25": (50, 0.15),
+    "dncnn_50": (50, 0.15),
+    "ffdnet_gray": (50, 0.25),
+    "ircnn_gray": (50, 0.145),
+    "drunet_gray": (50, 0.26),
+}
+
+# Reference per-model defaults for PnP-ADMM-CNC-D (reference
+# ``【6】PNP_ADMM_CNC_D .py:569-578``): (alpha, iter_num, lam, rho, b)
+PNP_CNC_DEFAULTS = {
+    "fdncnn_gray": (0.9, 50, 0.2, 0.45, 0.3),
+    "dncnn_pair": (1.2, 50, 4.0, 0.45, 0.3),
+    "ffdnet_gray": (0.9, 50, 1.35, 0.45, 0.3),
+    "ircnn_gray": (0.5, 50, 1.3, 0.45, 2.0),
+    "drunet_gray": (1.0, 50, 0.8, 0.8, 0.45),
+}
+
 ADMM_L1_DEFAULT = ADMMConfig(iter_num=50, lam=0.1, rho=0.015)
 ADMM_CNC_DEFAULT = ADMMConfig(iter_num=50, lam=0.5, rho=0.05, alpha=0.45, b=64.0)
+
+# Tuned settings found by sweep against the self-trained zoo weights
+# (the JAX package's docs/USAGE.md): ADMMConfig overrides plus the denoiser
+# knobs ``nlm`` ([0,255] scale) and ``x8``.
+TUNED_PNP_L1 = {
+    "dncnn_15": dict(iter_num=4, rho=1.0),
+    "dncnn_25": dict(iter_num=4, rho=1.2),
+    "dncnn_50": dict(iter_num=4, rho=3.0),
+    "fdncnn_gray": dict(iter_num=4, rho=0.8, nlm=12.0),
+    "ffdnet_gray": dict(iter_num=4, rho=0.8, nlm=12.0),
+    "ircnn_gray": dict(iter_num=15, rho=0.65, nlm=8.0),
+    "drunet_gray": dict(iter_num=4, rho=0.45, nlm=5.0, x8=False),
+}
+TUNED_PNP_CNC = {
+    "fdncnn_gray": dict(iter_num=4, alpha=1.6, nlm=12.0),
+    "ffdnet_gray": dict(iter_num=4, alpha=1.8),
+    "ircnn_gray": dict(iter_num=6, alpha=1.0, nlm=8.0),
+    "drunet_gray": dict(iter_num=4, alpha=1.8),
+    "dncnn_pair": dict(iter_num=5, alpha=0.7),
+}

@@ -1,8 +1,9 @@
 """Image quality metrics on the [0, 255] scale, in float64.
 
 Port of the JAX package's ``ops/metrics.py`` (reference
-``utils_image.py:543-636``): PSNR, MATLAB-compatible SSIM (11x11 Gaussian
-window, sigma 1.5, valid region) and the relative error. Inputs of shape
+``utils_image.py:543-636``): PSNR, the complex-tolerant PSNR,
+MATLAB-compatible SSIM (11x11 Gaussian window, sigma 1.5, valid region),
+the relative error, and all three of a [0, 1] reconstruction at once. Inputs of shape
 (..., H, W) reduce over the trailing two axes.
 """
 
@@ -21,6 +22,14 @@ def psnr(img1: torch.Tensor, img2: torch.Tensor, border: int = 0) -> torch.Tenso
     diff = _crop(img1, border).to(torch.float64) - _crop(img2, border).to(torch.float64)
     mse = torch.mean(diff * diff, dim=(-2, -1))
     return 20.0 * torch.log10(255.0 / torch.sqrt(mse))
+
+
+def psnr_complex(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """The reference's second PSNR (``utils/utils.py:12-17``): built on
+    ``|x - ref|^2``, so it takes the complex zero-filled start too."""
+    diff = torch.abs(x - ref)
+    mse = torch.mean(diff * diff, dim=(-2, -1))
+    return 10.0 * torch.log10(255.0**2 / mse)
 
 
 def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
@@ -65,3 +74,14 @@ def relative_error(img1: torch.Tensor, img2: torch.Tensor, border: int = 0) -> t
     num = torch.sqrt(torch.sum((img2 - img1) ** 2, dim=(-2, -1)))
     den = torch.sqrt(torch.sum(img2**2, dim=(-2, -1)))
     return num / den
+
+
+def all_metrics(recon01: torch.Tensor, truth_uint: torch.Tensor, border: int = 0) -> dict:
+    """PSNR, SSIM and RE of a [0, 1] reconstruction scored as ``x * 255``
+    against a [0, 255] ground truth (reference ``ADMM_L1.py:133-146``)."""
+    img_e = recon01 * 255.0
+    return {
+        "psnr": psnr(img_e, truth_uint, border),
+        "ssim": ssim(img_e, truth_uint, border),
+        "re": relative_error(img_e, truth_uint, border),
+    }

@@ -1,8 +1,8 @@
 """The port's classical ADMM slice against the JAX package, on the CPU.
 
-Covers the solvers (``admm_l1``/``admm_cnc``, fused and unfused), one
-``admm_step`` from a JAX state, metrics, the numpy data generators, the
-interop helpers, the device rule of the entry points, the import boundary
+Covers the solvers (``admm_l1``/``admm_cnc``, fused and unfused, and their
+``cfg.tol`` branch), one ``admm_step`` from a JAX state, metrics, the
+numpy data generators, the interop helpers, the device rule of the entry points, the import boundary
 of the port, and ``chip_smoke.py``'s refusal to run without a card.
 """
 
@@ -148,11 +148,21 @@ def test_fused_equals_unfused_on_the_cpu():
             assert torch.equal(u, v)
 
 
-def test_tolerance_stopping_is_refused():
-    _, mask, y = _scenario(h=8, w=8)
-    for f in (admm.admm_l1, admm.admm_cnc):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            f(y, mask, dataclasses.replace(CFG, tol=1e-3), device=CPU)
+@pytest.mark.parametrize("tol", [1e-2, 1e-30])
+@pytest.mark.parametrize("solver", ["l1", "cnc"])
+def test_tolerance_stopping_matches_jax(solver, tol):
+    """``cfg.tol`` (``run_admm_tol``), stopped early (1e-2) and run to the
+    cap (1e-30): the same state and the same count of iterations run."""
+    _, mask, y = _scenario(b=3, h=16, w=32, seed=8)
+    cfg = dataclasses.replace(ADMM_L1_DEFAULT if solver == "l1" else ADMM_CNC_DEFAULT, iter_num=12, tol=tol)
+    ours, theirs = SOLVERS[solver]
+    got, n = ours(y, mask, cfg, dtype=torch.float64, device=CPU)
+    ref, jn = theirs(jnp.asarray(y), jnp.asarray(mask), _jax_cfg(cfg), dtype=jnp.float64)
+    assert n == int(jn) and (n < 12) == (tol == 1e-2)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-9)
+    with pytest.raises(ValueError, match="collect_residuals"):
+        ours(y, mask, cfg, device=CPU, collect_residuals=True)
 
 
 def test_default_device_needs_cuda(monkeypatch):

@@ -1,8 +1,9 @@
 """CUDA kernels (the ADMM tails and the fused iteration) against their
-plain PyTorch versions, on the card.
+plain PyTorch versions, and the denoisers and a PnP-CNC step in float32
+against float64, on the card.
 
-These tests need a CUDA device and nvcc, and skip without them. The file
-imports no JAX, so it also runs on a machine without it:
+These tests need a CUDA device (the kernels also nvcc), and skip without
+one. The file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
@@ -11,7 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+import warnings
+
+from pnp_admm_cnc_mri_torch.config import ADMMConfig, PNP_CNC_DEFAULTS
 from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, tail_kernels
+from pnp_admm_cnc_mri_torch.priors import denoiser
+from pnp_admm_cnc_mri_torch.solvers import admm
 
 pytestmark = pytest.mark.cuda
 
@@ -227,3 +233,61 @@ def test_cluster_design_refuses_shapes_it_does_not_take(cuda_iteration):
     with pytest.raises(ValueError, match="cluster design does not take"):
         fused_dc.make_fused_iteration(*fields, 300, 256, C_L1, design="cluster")
     assert fused_dc.make_fused_iteration(*fields, 300, 256, C_L1).fields.design == "strips"
+
+
+# The denoisers on the card, float32 against float64 on the same seeded
+# weights, with torch's default TF32 setting for convolutions left on in
+# the caller (the denoiser turns it off for its own forward). At full width
+# the DRUNet forward is 5.1e-7 off in float32 and 2.7e-4 off with TF32
+# (PERF.md); these narrow nets sum fewer terms.
+DENOISER_ATOL = 1e-5
+SMALL_DENOISERS = {"dncnn_25": dict(nc=16, nb=5), "fdncnn_gray": dict(nc=16, nb=5), "ircnn_gray": dict(nc=16),
+                   "ffdnet_gray": dict(nc=16, nb=5), "drunet_gray": dict(nc=16, nb=2, x8=True)}
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _seeded_denoiser(name, dtype, device, **kw):
+    noises = 20.0 * np.random.default_rng(1).normal(size=(64, 64))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # random init warns
+        return denoiser.build_denoiser(name, iter_num=8, noises=noises, param_dtype=dtype, device=device,
+                                       **SMALL_DENOISERS[name], **kw)
+
+
+@pytest.mark.parametrize("name", list(SMALL_DENOISERS))
+def test_denoiser_float32_matches_float64(card, name):
+    assert torch.backends.cudnn.allow_tf32  # the caller's default, which the denoiser must not use
+    d32 = _seeded_denoiser(name, torch.float32, card)
+    d64 = _seeded_denoiser(name, torch.float64, card)
+    v = torch.from_numpy(np.random.default_rng(2).random((2, 64, 64))).to(card)
+    for i in (0, 5):
+        a, b = d32(v.float(), i), d64(v, i)
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+        err = float((a.double() - b).abs().max())
+        assert err < DENOISER_ATOL, (name, i, err)
+    assert torch.backends.cudnn.allow_tf32
+
+
+def test_pnp_cnc_step_float32_matches_float64(card):
+    """One PnP-CNC iteration with DRUNet in both slots at the reference's
+    DRUNet defaults (PNP_CNC_DEFAULTS), float32 against float64."""
+    rng = np.random.default_rng(3)
+    img = rng.random((2, 64, 64))
+    mask = (rng.random((64, 64)) < 0.3).astype(np.float64)
+    y = np.fft.fft2(img) * mask + 3.0 * (rng.normal(size=(64, 64)) + 1j * rng.normal(size=(64, 64)))
+    alpha, _, lam, rho, b = PNP_CNC_DEFAULTS["drunet_gray"]
+    cfg = ADMMConfig(iter_num=1, rho=rho, lam=lam, alpha=alpha, b=b)
+    states = {}
+    for dtype, cplx in ((torch.float32, np.complex64), (torch.float64, np.complex128)):
+        d = _seeded_denoiser("drunet_gray", dtype, card)
+        states[dtype] = admm.pnp_admm_cnc(y.astype(cplx), mask, cfg, d, dtype=dtype, device=card)[0]
+    for a, r in zip(states[torch.float32], states[torch.float64]):
+        assert bool(((a >= 0) & (a <= 1)).all())
+        err = float((a.double() - r).abs().max())
+        assert err < DENOISER_ATOL, err
