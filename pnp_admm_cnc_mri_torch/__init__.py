@@ -5,7 +5,9 @@ nothing of it (and no JAX) and keeps its own copy of what it needs. Its
 entry points run on the CUDA card unless the caller passes
 ``device="cpu"``. The fused ADMM tails and the fused ADMM-L1 iteration
 run as hand-written CUDA kernels (``csrc/admm_tail.cu``,
-``csrc/admm_iteration.cu``, built with nvcc at first use).
+``csrc/admm_iteration.cu``, ``csrc/admm_iteration_cluster.cu``, built
+with nvcc at first use). The PnP solvers take the CNN denoisers of
+``priors/denoiser.py``, whose convolutions run in cuDNN without TF32.
 """
 
 from pnp_admm_cnc_mri_torch.config import (  # noqa: F401

@@ -1,8 +1,8 @@
 """Carrying state across from the JAX package, as plain Python and numpy.
 
-This slice has no learned weights: what crosses is the solver
-configuration (``dataclasses.asdict`` of the JAX ``ADMMConfig``) and an
-``ADMMState`` given as numpy arrays.
+What crosses here is the solver configuration (``dataclasses.asdict`` of
+the JAX ``ADMMConfig``) and an ``ADMMState`` given as numpy arrays; the
+denoisers' learned weights cross through ``models/convert.py``.
 """
 
 from __future__ import annotations

@@ -1,1 +1,1 @@
-"""Operators of the classical ADMM slice: Fourier model, proxes, fused tails, metrics."""
+"""Operators of the ADMM solvers: Fourier model, proxes, fused tails and iteration, metrics, schedules."""
