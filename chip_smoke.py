@@ -41,6 +41,20 @@ Phases, each timed and each fatal on failure:
            stay 0: no Pallas kernel of the JAX package is on this path);
            times both solves, the forwards and the data-consistency solve,
            and the forward's rate from its layer shapes;
+- solvers: the FISTA, HQS, RED and consensus solvers. ``fista_l1`` at 512 x
+           256 x 256 x 50 (PSNR above the zero-filled start on every image)
+           and in float64 at 2 x 256 x 256 against a numpy FISTA; PnP-FISTA
+           and consensus-FISTA (3 observations an image: random, radial and
+           Cartesian masks) with DRUNet at full width, seeded weights, on
+           ``TUNED_FISTA_D`` / ``TUNED_CONSENSUS_FISTA``, each held in
+           float32 against float64 over 4 iterations; then, with the
+           classical kernels' counts set to 0 just before and read just after
+           (they stay 0), 4 x 256 x 256 runs of PnP-FISTA, consensus-FISTA,
+           PnP-HQS, RED and consensus-HQS with DRUNet and PnP-FISTA with
+           TDNet (nc 128, nb 12, x8 ensemble), outputs finite and in [0, 1];
+           times ``fista_l1`` beside ``admm_l1(fused=True)``, the two FISTA
+           solves, their iterations without the forwards, and the TDNet
+           forward with its rate;
 - timing:  CUDA-event medians of the solves, of each tail kernel against its
            plain version and its bound, and of the two designs' steps and
            the cuFFT path's iteration on the same state, in turns.
@@ -180,6 +194,25 @@ def numpy_admm_l1(img, mask, noise, iters, lam, rho):
     return x
 
 
+def numpy_fista_l1(img, mask, noise, iters, lam, step):
+    """Straight-line numpy FISTA-L1 (Beck and Teboulle), float64, with the
+    gradient ifft2(mask fft2(v) - y) read where the mask samples."""
+    import numpy as np
+
+    y = np.fft.fft2(img) * mask + noise
+    x = np.abs(np.fft.ifft2(y))
+    v, t = x.copy(), 1.0
+    for _ in range(iters):
+        r = np.fft.fft2(v) * mask
+        r = np.where(mask != 0, r - y, r)
+        u = v - step * np.real(np.fft.ifft2(r))
+        x_new = np.fmax(np.abs(u) - step * lam, 0) * np.sign(u)
+        t_new = (1.0 + np.sqrt(1.0 + 4.0 * t * t)) / 2.0
+        v = x_new + ((t - 1.0) / t_new) * (x_new - x)
+        x, t = x_new, t_new
+    return x
+
+
 def main() -> dict:
     import numpy as np
     import torch
@@ -190,11 +223,20 @@ def main() -> dict:
         raise SystemExit("chip_smoke: the package pnp_admm_cnc_mri_torch is not next to this script")
     sys.path.insert(0, ROOT)
     from pnp_admm_cnc_mri_torch import ADMM_CNC_DEFAULT, ADMM_L1_DEFAULT, ADMMConfig
-    from pnp_admm_cnc_mri_torch.config import PNP_CNC_DEFAULTS, PNP_L1_DEFAULTS
+    from pnp_admm_cnc_mri_torch.config import (
+        PNP_CNC_DEFAULTS,
+        PNP_L1_DEFAULTS,
+        TUNED_CONSENSUS_FISTA,
+        TUNED_CONSENSUS_HQS,
+        TUNED_FISTA_D,
+        TUNED_HQS_D,
+        TUNED_RED_D,
+    )
     from pnp_admm_cnc_mri_torch.data import masks, noise, phantom
-    from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, metrics, tail_kernels
+    from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, metrics, prox, tail_kernels
     from pnp_admm_cnc_mri_torch.priors import denoiser
-    from pnp_admm_cnc_mri_torch.solvers import admm
+    from pnp_admm_cnc_mri_torch.parallel import consensus
+    from pnp_admm_cnc_mri_torch.solvers import admm, fista, hqs, red
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -548,9 +590,131 @@ def main() -> dict:
     del pnp, s32, s64, st, drunet, dncnn, dc4
     phase("pnp", t)
 
-    # -- timing ----------------------------------------------------------------
+    # -- solvers: FISTA, consensus, HQS, RED; DRUNet and TDNet at full width --
     t = time.perf_counter()
     rates = {}
+    fl1 = dict(lam=8e-4, step=1.0)
+    # classical FISTA-L1 on the main scenario, and in float64 against numpy;
+    # the classical kernels' counts set to 0 here and read after the driven runs
+    torch.cuda.synchronize()
+    tail_kernels.reset_launches()
+    fused_dc.reset_launches()
+    x_f = fista.fista_l1(y, mask, ITERS, **fl1)[0].x
+    check(tuple(x_f.shape) == (B, H, W) and x_f.dtype == torch.float32, f"fista_l1: x is {x_f.dtype} {tuple(x_f.shape)}")
+    check(bool(torch.isfinite(x_f).all()), "fista_l1: non-finite output")
+    p = metrics.psnr(x_f * 255.0, img * 255.0)
+    check(bool(torch.isfinite(p).all()) and bool((p > zf_psnr).all()),
+          f"fista_l1: PSNR {float(p.min())} not above the zero-filled PSNR on every image")
+    sq = {"fista_l1_psnr_db": float(p.mean())}
+    img2 = img_np[:2].astype(np.float64)
+    y2 = np.fft.fft2(img2) * mask_np + noise_np.astype(np.complex128)
+    x2_f = fista.fista_l1(y2, mask_np, ITERS, dtype=torch.float64, **fl1)[0].x
+    ref2 = np.stack([numpy_fista_l1(im, mask_np, noise_np.astype(np.complex128), ITERS, **fl1) for im in img2])
+    fista_f64_err = float(np.abs(x2_f.cpu().numpy() - ref2).max())
+    check(fista_f64_err < 1e-9, f"float64 fista_l1 on the card vs numpy reference: {fista_f64_err}")
+    # DRUNet at full width on the tuned ladders, seeded weights
+    tf, th, tr = TUNED_FISTA_D["drunet_gray"], TUNED_HQS_D["drunet_gray"], TUNED_RED_D["drunet_gray"]
+    check(TUNED_CONSENSUS_FISTA["drunet_gray"] == tf and TUNED_CONSENSUS_HQS["drunet_gray"] == th,
+          "the consensus tables no longer share the single-mask DRUNet settings: build their own denoisers")
+    nlm01 = lambda row: row["nlm"] / 255.0  # noqa: E731
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the seeded random init warns
+        d_fista = {dt: denoiser.build_denoiser("drunet_gray", iter_num=tf["iter_num"], noise_level_model=nlm01(tf),
+                                               model_sigma1=tf["model_sigma1"], x8=tf["x8"], param_dtype=dt,
+                                               device=dev)
+                   for dt in (torch.float32, torch.float64)}
+        d_hqs = denoiser.build_denoiser("drunet_gray", iter_num=th["iter_num"], noise_level_model=nlm01(th),
+                                        x8=th["x8"], device=dev)
+        # RED's constant-strength denoiser: the ladder flattened at nlm
+        d_red = denoiser.build_denoiser("drunet_gray", iter_num=tr["iter_num"], noise_level_model=nlm01(tr),
+                                        model_sigma1=tr["nlm"], device=dev)
+        ttd = TUNED_FISTA_D["tdnet"]
+        d_td, d_td1 = (denoiser.build_denoiser("tdnet", iter_num=ttd["iter_num"], noise_level_model=nlm01(ttd),
+                                               model_sigma1=ttd["model_sigma1"], x8=x8, device=dev)
+                       for x8 in (ttd["x8"], False))
+    check(torch.backends.cudnn.allow_tf32, "TF32 was already off for cuDNN: the checks below would prove nothing")
+    hqs_ladder = dict(sigma255=th["sigma255"], model_sigma1=49.0, model_sigma2=th["nlm"])
+    # 3 observations of each image, with the same noise
+    masks3 = torch.from_numpy(np.stack([mask_np, masks.radial_mask((H, W)),
+                                        masks.cartesian_mask((H, W), fraction=0.3, seed=1)])).to(dev, torch.float32)
+    ys4 = fourier.observe(img4[:, None], masks3, torch.from_numpy(noise_np).to(dev))
+    check(tuple(ys4.shape) == (PNP_B, 3, H, W), f"consensus observations of shape {tuple(ys4.shape)}")
+
+    def prox_of(d):
+        return lambda i, u: prox.clip01(d(u, i))
+
+    # 4 iterations, float32 against float64, batch 2
+    fista_err = {}
+    for k, run in {
+        "pnp_fista": lambda yy, d, dt: fista.pnp_fista(yy, mask, 4, d, dtype=dt)[0],
+        "consensus_fista": lambda yy, d, dt: consensus.run_consensus_fista(yy, masks3, 4, prox_of(d), dtype=dt,
+                                                                          return_state=True),
+    }.items():
+        yy = y[:2] if k == "pnp_fista" else ys4[:2]
+        a_, r_ = run(yy, d_fista[torch.float32], torch.float32), run(yy.to(torch.complex128), d_fista[torch.float64],
+                                                                   torch.float64)
+        fista_err[k] = max(float((a_.x.double() - r_.x).abs().max()), float((a_.v.double() - r_.v).abs().max()))
+        check(fista_err[k] < PNP_ATOL, f"{k} 4 iterations float32 vs float64: {fista_err[k]}")
+    # the paths (the classical kernels' counts were set to 0 at the phase's start)
+    out = {
+        "pnp_fista_drunet": fista.pnp_fista(y4, mask, tf["iter_num"], d_fista[torch.float32])[0].x,
+        "consensus_fista_drunet": consensus.run_consensus_fista(ys4, masks3, tf["iter_num"],
+                                                                prox_of(d_fista[torch.float32])),
+        "pnp_hqs_drunet": hqs.pnp_hqs(y4, mask, th["iter_num"], d_hqs, **hqs_ladder)[0],
+        "red_drunet": red.run_red(y4, mask, tr["iter_num"], d_red, lam=tr["lam"])[0],
+        "consensus_hqs_drunet": consensus.run_consensus_hqs(ys4, masks3, th["iter_num"], d_hqs, **hqs_ladder),
+        "pnp_fista_tdnet": fista.pnp_fista(y4, mask, ttd["iter_num"], d_td)[0].x,
+    }
+    torch.cuda.synchronize()
+    solver_launches = {"l1_tail": tail_kernels.l1_tail.launches, "cnc_tail": tail_kernels.cnc_tail.launches,
+                       "fused_iteration": fused_dc.fused_iteration.launches}
+    check(solver_launches == dict.fromkeys(solver_launches, 0),
+          f"the solvers' paths launched a classical kernel: {solver_launches}")
+    for k, xk in out.items():
+        check(tuple(xk.shape) == (PNP_B, H, W) and xk.dtype == torch.float32, f"{k}: x is {xk.dtype} {tuple(xk.shape)}")
+        check(bool(torch.isfinite(xk).all()) and float(xk.min()) >= 0.0 and float(xk.max()) <= 1.0,
+              f"{k}: not finite or outside [0, 1]")
+        sq[k] = float(metrics.psnr(xk * 255.0, img4 * 255.0).mean())
+    log(f"solvers: fista_l1 {B}x{H}x{W}x{ITERS} PSNR above zero-filled on every image; float64 fista_l1 vs numpy "
+        f"{fista_f64_err:.3g}; DRUNet (nc 64..512, nb 4) 4 iterations float32 vs float64 {json.dumps(fista_err)} "
+        f"(batch 2; tolerance {PNP_ATOL:g}); outputs finite and in [0, 1]; classical kernel launches on these paths "
+        f"{json.dumps(solver_launches)}; mean PSNR (random denoiser weights: no quality claim) {json.dumps(sq)}")
+    # timing: fista_l1 beside admm_l1(fused=True), the two FISTA solves, the
+    # rest of their iterations (identity denoiser), and the TDNet forward
+    ident = lambda v, i: v  # noqa: E731
+    solver_ms = {
+        "fista_l1_solve": cuda_ms(lambda: fista.fista_l1(y, mask, ITERS, **fl1)),
+        "admm_l1_fused_solve": cuda_ms(lambda: admm.admm_l1(y, mask, ADMM_L1_DEFAULT, fused=True, dc_method="fft")),
+        "pnp_fista_drunet_solve": cuda_ms(lambda: fista.pnp_fista(y4, mask, tf["iter_num"], d_fista[torch.float32]),
+                                          reps=3, warmup=0),
+        "consensus_fista_drunet_solve": cuda_ms(lambda: consensus.run_consensus_fista(
+            ys4, masks3, tf["iter_num"], prox_of(d_fista[torch.float32])), reps=3, warmup=0),
+        "pnp_fista_identity_solve": cuda_ms(lambda: fista.pnp_fista(y4, mask, tf["iter_num"], ident)),
+        "consensus_fista_identity_solve": cuda_ms(lambda: consensus.run_consensus_fista(
+            ys4, masks3, tf["iter_num"], prox_of(ident))),
+        "tdnet_forward": cuda_ms(lambda: d_td1(v4, 0), reps=5, inner=5),
+    }
+    td_flops = conv_flops(d_td1, v4)
+    rates["fista_l1"] = {"solve_ms": solver_ms["fista_l1_solve"],
+                         "image_iters_per_s": B * ITERS / (solver_ms["fista_l1_solve"] / 1e3)}
+    n_it = tf["iter_num"]
+    log(f"timing solvers (CUDA-event medians, ms): {json.dumps(solver_ms)}; fista_l1 {B}x{H}x{W}x{ITERS}: "
+        f"{solver_ms['fista_l1_solve'] / ITERS:.3f} ms an iteration, {rates['fista_l1']['image_iters_per_s']:.0f} "
+        f"image-iters/s (admm_l1 fused {solver_ms['admm_l1_fused_solve'] / ITERS:.3f} ms an iteration); "
+        f"PnP-FISTA {solver_ms['pnp_fista_drunet_solve'] / n_it:.3f} ms an iteration, without the forward "
+        f"{solver_ms['pnp_fista_identity_solve'] / n_it:.3f}; consensus-FISTA "
+        f"{solver_ms['consensus_fista_drunet_solve'] / n_it:.3f}, without the forward "
+        f"{solver_ms['consensus_fista_identity_solve'] / n_it:.3f}; DRUNet forward (pnp phase) "
+        f"{pnp_ms['drunet_forward']:.3f}; TDNet (nc 128, nb 12) forward at batch {PNP_B} {td_flops / 1e9:.1f} GFLOP "
+        f"({td_flops / PNP_B / 1e9:.2f} a {H}x{W} image, convolutions only) = "
+        f"{td_flops / (solver_ms['tdnet_forward'] * 1e-3) / 1e12:.2f} TFLOP/s, "
+        f"{td_flops / (solver_ms['tdnet_forward'] * 1e-3) / FP32_FLOPS:.1%} of the {FP32_FLOPS / 1e12:.0f} TFLOP/s "
+        f"float32 peak")
+    del out, d_fista, d_hqs, d_red, d_td, d_td1, ys4, x_f
+    phase("solvers", t)
+
+    # -- timing ----------------------------------------------------------------
+    t = time.perf_counter()
     for k, (f, cfg) in solvers.items():
         for label, kw in (("fused", dict(fused=True, dc_method="fft")),
                           ("unfused", dict(fused=False, dc_method="fft")),

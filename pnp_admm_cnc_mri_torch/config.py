@@ -1,6 +1,7 @@
-"""Solver configuration: a copy of the JAX package's ``config.py:16-102``
-restricted to what the classical and PnP-ADMM solvers use (the FISTA, HQS,
-RED and consensus tables come with those solvers)."""
+"""Solver configuration: a copy of the JAX package's ``config.py:16-282``
+restricted to what the ported solvers use: ADMM (classical and PnP), FISTA
+and PGD, HQS, RED and single-device consensus. The ``bm3d`` rows are kept
+as data; no BM3D prior is ported yet."""
 
 from __future__ import annotations
 
@@ -80,4 +81,102 @@ TUNED_PNP_CNC = {
     "ircnn_gray": dict(iter_num=6, alpha=1.0, nlm=8.0),
     "drunet_gray": dict(iter_num=4, alpha=1.8),
     "dncnn_pair": dict(iter_num=5, alpha=0.7),
+}
+
+# Multi-mask consensus-ADMM with a denoiser z-prox (parallel/consensus.py).
+TUNED_CONSENSUS_D = {
+    "drunet_gray": dict(iter_num=4, rho=1.2),
+    "ffdnet_gray": dict(iter_num=4, rho=1.8, nlm=12.0),
+    "fdncnn_gray": dict(iter_num=4, rho=2.4, nlm=12.0),
+    "ircnn_gray": dict(iter_num=4, rho=1.2),
+    "dncnn_25": dict(iter_num=4, rho=3.0),
+}
+
+# PnP-FISTA (solvers/fista.py): step 1, the data term's Lipschitz constant.
+TUNED_FISTA_D = {
+    "drunet_gray": dict(iter_num=30, nlm=12.0, model_sigma1=15.0, x8=True),
+    "tdnet": dict(iter_num=30, nlm=10.0, model_sigma1=15.0, x8=True),
+    "ffdnet_gray": dict(iter_num=30, nlm=11.0),
+    "fdncnn_gray": dict(iter_num=30, nlm=10.0),
+    "ircnn_gray": dict(iter_num=30, nlm=12.0),
+    "dncnn_25": dict(iter_num=30),
+    "bm3d": dict(iter_num=10, nlm=15.0),
+}
+
+# PnP-HQS (solvers/hqs.py): nlm is the ladder's endpoint (model_sigma2),
+# sigma255 the scale of the alpha ladder.
+TUNED_HQS_D = {
+    "drunet_gray": dict(iter_num=30, nlm=8.0, sigma255=10.0, x8=True),
+    "tdnet": dict(iter_num=30, nlm=8.0, sigma255=10.0, x8=True),
+    "ffdnet_gray": dict(iter_num=30, nlm=10.0, sigma255=5.0),
+    "fdncnn_gray": dict(iter_num=30, nlm=10.0, sigma255=5.0),
+    "ircnn_gray": dict(iter_num=30, nlm=8.0, sigma255=5.0),
+    "dncnn_25": dict(iter_num=10, sigma255=1.0),
+    "bm3d": dict(iter_num=10, nlm=10.0, sigma255=10.0),
+}
+
+# RED (solvers/red.py, fixed-point variant): nlm is a constant denoiser
+# sigma, so the ladder is flattened with model_sigma1 = nlm.
+TUNED_RED_D = {
+    "drunet_gray": dict(iter_num=50, lam=0.3, nlm=8.0),
+    "tdnet": dict(iter_num=50, lam=0.3, nlm=20.0),
+    "ffdnet_gray": dict(iter_num=50, lam=0.3, nlm=10.0),
+    "fdncnn_gray": dict(iter_num=50, lam=0.3, nlm=10.0),
+    "ircnn_gray": dict(iter_num=50, lam=0.3, nlm=10.0),
+    "dncnn_25": dict(iter_num=50, lam=0.3),
+    "bm3d": dict(iter_num=20, lam=0.3, nlm=15.0),
+}
+
+# Multi-mask consensus-FISTA (parallel/consensus.run_consensus_fista).
+TUNED_CONSENSUS_FISTA = {
+    "drunet_gray": dict(iter_num=30, nlm=12.0, model_sigma1=15.0, x8=True),
+    "tdnet": dict(iter_num=30, nlm=12.0, model_sigma1=15.0, x8=True),
+    "ircnn_gray": dict(iter_num=30, nlm=12.0),
+    "fdncnn_gray": dict(iter_num=30, nlm=12.0),
+    "ffdnet_gray": dict(iter_num=30, nlm=13.0),
+    "dncnn_25": dict(iter_num=30),
+    "bm3d": dict(iter_num=10, nlm=15.0),
+}
+
+# Multi-mask consensus-HQS (parallel/consensus.run_consensus_hqs); keys as
+# TUNED_HQS_D.
+TUNED_CONSENSUS_HQS = {
+    "drunet_gray": dict(iter_num=30, nlm=8.0, sigma255=10.0, x8=True),
+    "ffdnet_gray": dict(iter_num=30, nlm=10.0, sigma255=5.0),
+    "fdncnn_gray": dict(iter_num=30, nlm=10.0, sigma255=5.0),
+    "ircnn_gray": dict(iter_num=30, nlm=8.0, sigma255=5.0),
+    "dncnn_25": dict(iter_num=10, sigma255=1.0),
+    "bm3d": dict(iter_num=10, nlm=10.0, sigma255=10.0),
+}
+
+# PGD / ISTA (momentum-off FISTA, solvers/fista.py).
+TUNED_PGD_L1 = dict(iter_num=100, lam=4e-4, step=1.0)
+TUNED_PGD_D = {
+    "drunet_gray": dict(iter_num=30, nlm=12.0, model_sigma1=15.0, x8=True),
+    "tdnet": dict(iter_num=40, nlm=10.0, model_sigma1=15.0, x8=True),
+    "ffdnet_gray": dict(iter_num=40, nlm=11.0),
+    "fdncnn_gray": dict(iter_num=40, nlm=10.0),
+    "ircnn_gray": dict(iter_num=40, nlm=12.0),
+    "dncnn_25": dict(iter_num=40),
+    "bm3d": dict(iter_num=15, nlm=15.0),
+}
+# PGD with the CNC (GMC) double-denoiser prox (solvers/fista.pnp_pgd_cnc).
+TUNED_PGD_CNC = {
+    "bm3d": dict(iter_num=10, alpha=1.0, lam=0.02, b=36.0, nlm=25.0),
+    "drunet_gray": dict(iter_num=30, alpha=1.0, lam=0.001, b=36.0, nlm=12.0, model_sigma1=15.0),
+    "tdnet": dict(iter_num=30, alpha=1.0, lam=0.001, b=36.0, nlm=10.0, model_sigma1=15.0),
+    "ffdnet_gray": dict(iter_num=30, alpha=1.0, lam=0.001, b=36.0, nlm=11.0),
+    "fdncnn_gray": dict(iter_num=30, alpha=1.0, lam=0.001, b=36.0, nlm=10.0),
+    "ircnn_gray": dict(iter_num=30, alpha=1.0, lam=0.001, b=36.0, nlm=12.0),
+    "dncnn_25": dict(iter_num=30, alpha=1.0, lam=0.001, b=36.0),
+}
+
+# Consensus-ADMM settings for the weights trained without the evaluation
+# images (model_zoo/<name>_clean.npz).
+TUNED_CONSENSUS_D_CLEAN: dict = {
+    "ffdnet_gray": dict(iter_num=4, rho=1.8, nlm=12.0),
+    "fdncnn_gray": dict(iter_num=4, rho=1.8, nlm=12.0),
+    "ircnn_gray": dict(iter_num=4, rho=0.8, nlm=8.0),
+    "dncnn_25": dict(iter_num=4, rho=3.0),
+    "drunet_gray": dict(iter_num=4, rho=0.8, nlm=8.0),
 }

@@ -43,6 +43,15 @@ def zero_fill(y: torch.Tensor) -> torch.Tensor:
     return ifft2(y)
 
 
+def data_term_gradient(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The complex gradient ``A^H (A x - y)`` of the data term (reference
+    ``utils/utils.py:50-55``, ``Df``): ``ifft2(mask fft2(x) - y)``, with y
+    read only where the mask samples. Full complex spectrum, as in JAX."""
+    res = fft2(x) * mask
+    res = torch.where(mask != 0, res - y, res)
+    return ifft2(res)
+
+
 def data_consistency(v: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, rho) -> torch.Tensor:
     """ADMM x-update on the full spectrum: the pointwise k-space blend at
     sampled frequencies, then ``|real(ifft2(.))|`` (the magnitude projection

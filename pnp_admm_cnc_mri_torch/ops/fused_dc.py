@@ -377,7 +377,7 @@ def admm_l1_fused_kernel(y, mask, cfg, dtype=torch.float32, device=None, design=
     """
     if cfg.tol is not None:
         raise ValueError("admm_l1_fused_kernel runs cfg.iter_num iterations; cfg.tol must be None")
-    y, mask = admm._prepare(y, mask, device)
+    y, mask = admm.prepare_inputs(y, mask, device)
     h, w = mask.shape[-2:]
     a_half, c_half = fourier.rfft_blend_fields(y, mask, cfg.rho)
     step = make_fused_iteration(a_half.to(dtype), c_half.real.to(dtype), c_half.imag.to(dtype),

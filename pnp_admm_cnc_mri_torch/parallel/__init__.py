@@ -1,1 +1,1 @@
-"""Reductions over the batch (single device in this slice)."""
+"""Reductions over the batch and the single-device consensus solvers."""

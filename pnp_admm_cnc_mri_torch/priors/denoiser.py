@@ -14,7 +14,9 @@ Port of the JAX package's ``priors/denoiser.py`` (reference dispatchers
   (``x8``);
 - ``ircnn``: 25 stacked weight sets, the iteration's set picked by the
   sigma ladder's bin;
-- ``ffdnet``: ``model(v, noise_level / 255)``.
+- ``ffdnet``: ``model(v, noise_level / 255)``;
+- ``tdnet``: ``model(v, sigma)`` with the iteration's rung of the sigma
+  ladder; ``x8`` averages all eight dihedral transforms (``x8_ensemble``).
 
 Every forward folds the batch axes into N, runs NCHW in the working dtype
 (``compute_dtype`` or ``param_dtype``), casts back to v's dtype, and runs
@@ -37,6 +39,7 @@ from pnp_admm_cnc_mri_torch.models import convert
 from pnp_admm_cnc_mri_torch.models.dncnn import DnCNN, FDnCNN, IRCNN
 from pnp_admm_cnc_mri_torch.models.drunet import UNetRes
 from pnp_admm_cnc_mri_torch.models.ffdnet import FFDNet
+from pnp_admm_cnc_mri_torch.models.tdnet import TDNet
 from pnp_admm_cnc_mri_torch.ops import schedules
 from pnp_admm_cnc_mri_torch.priors import tiling
 from pnp_admm_cnc_mri_torch.solvers.admm import resolve_device
@@ -212,12 +215,13 @@ def build_denoiser(
     neither and ``allow_random_init``, the weights are drawn from a
     ``torch.Generator`` seeded with 0, with a warning. ``noises``: the
     complex k-space noise, fdncnn's map channel when ``noise_level_model``
-    is None. ``noise_level_model`` is on [0, 1] for ircnn and drunet and on
-    [0, 255] for ffdnet and fdncnn (``nlm_for_model``). ``nc``/``nb``
-    override width and depth. ``x8`` (drunet) cycles the dihedral
-    transforms by iteration. ``compute_dtype`` (e.g. bfloat16) runs the
-    network in that type; the output keeps v's dtype. The callable carries
-    its network as ``.model``.
+    is None. ``noise_level_model`` is on [0, 1] for ircnn, drunet and tdnet
+    and on [0, 255] for ffdnet and fdncnn (``nlm_for_model``). ``nc``/``nb``
+    override width and depth (tdnet's width is 128 unless ``nc`` is given
+    as another value than 64). ``x8`` cycles the dihedral transforms by
+    iteration for drunet and averages all eight for tdnet.
+    ``compute_dtype`` (e.g. bfloat16) runs the network in that type; the
+    output keeps v's dtype. The callable carries its network as ``.model``.
     """
     name = model_name.lower()
     device = resolve_device(device)
@@ -302,8 +306,22 @@ def build_denoiser(
                     return restore(x8_cycling(lambda a: core(a, i), i, x))
                 return restore(core(x, i))
 
+    elif "tdnet" in name:
+        # nc keeps its 64 default for the reference models; TDNet's own
+        # width applies unless another width is asked for
+        model = ready(TDNet(1, 1, nc=nc if nc != 64 else 128, nb=nb or 12))
+        sigmas = torch.as_tensor(_sigma_ladder(iter_num, noise_level_model, model_sigma1), dtype=work,
+                                 device=device)
+
+        def denoise(v, i):
+            x, restore = _as_nchw(v, work)
+            with full_precision_convs():
+                if x8:
+                    return restore(x8_ensemble(lambda a: model(a, sigmas[i]), x))
+                return restore(model(x, sigmas[i]))
+
     else:
-        raise ValueError(f"unknown denoiser model: {model_name} (tdnet waits for models/tdnet.py)")
+        raise ValueError(f"unknown denoiser model: {model_name}")
 
     denoise.model = model
     return denoise

@@ -205,7 +205,9 @@ def run_admm_adaptive(
     return state, (torch.stack([r for r, _ in trace]), torch.stack([d for _, d in trace]))
 
 
-def _prepare(y, mask, device):
+def prepare_inputs(y, mask, device):
+    """k-space ``y`` and ``mask`` (numpy arrays or tensors) as tensors on
+    ``resolve_device(device)``, their dtypes kept."""
     device = resolve_device(device)
     return torch.as_tensor(y, device=device), torch.as_tensor(mask, device=device)
 
@@ -244,7 +246,7 @@ def admm_l1(y, mask, cfg: ADMMConfig, dtype=torch.float32, fused: bool = True,
     ``run_admm_tol``'s ``(final_state, iterations_run)`` (then only
     ``use_rfft`` and ``dc_method`` are taken).
     """
-    y, mask = _prepare(y, mask, device)
+    y, mask = prepare_inputs(y, mask, device)
     thr = cfg.rho * cfg.lam
 
     def z_update(i, x, z, w):
@@ -260,7 +262,7 @@ def admm_cnc(y, mask, cfg: ADMMConfig, dtype=torch.float32, fused: bool = True,
              device=None, **kw):
     """ADMM-CNC (reference ``ADMM_CNC .py``): GMC firm-threshold z-update;
     ``fused`` runs ``tail_kernels.cnc_tail``. Arguments as ``admm_l1``."""
-    y, mask = _prepare(y, mask, device)
+    y, mask = prepare_inputs(y, mask, device)
 
     def z_update(i, x, z, w):
         return prox.cnc_update(z, x + w, cfg.alpha, cfg.rho, cfg.lam, cfg.b)
@@ -277,7 +279,7 @@ def admm_l1_adaptive(y, mask, cfg: ADMMConfig, gamma: float = 1.2, eta: float = 
                      dtype=torch.float32, collect: bool = False, device=None):
     """ADMM-L1 with Chan-style rho continuation (``run_admm_adaptive``): the
     soft threshold follows the adapting rho, ``soft(x + w, rho_k * lam)``."""
-    y, mask = _prepare(y, mask, device)
+    y, mask = prepare_inputs(y, mask, device)
 
     def z_update(i, x, z, w, rho_b):
         return prox.soft(x + w, rho_b * cfg.lam)
@@ -295,7 +297,7 @@ def admm_l1_jit(y, mask, iter_num: int, rho, lam, device=None) -> torch.Tensor:
     shape (G, B, H, W), as the vmapped JAX function does. The state has
     y's real precision.
     """
-    y, mask = _prepare(y, mask, device)
+    y, mask = prepare_inputs(y, mask, device)
     dt = y.real.dtype
     rho = torch.as_tensor(rho, dtype=dt, device=y.device)[..., None, None]
     lam = torch.as_tensor(lam, dtype=dt, device=y.device)[..., None, None]
@@ -317,7 +319,7 @@ def pnp_admm_l1(y, mask, cfg: ADMMConfig, denoise: Denoise, clamp: bool = True,
     the sigma-scheduled priors (DRUNet, IRCNN). ``clamp`` is the CNN
     variants' [0, 1] clamp of x, z and w. Other keywords go to ``run_admm``.
     """
-    y, mask = _prepare(y, mask, device)
+    y, mask = prepare_inputs(y, mask, device)
 
     def z_update(i, x, z, w):
         return denoise(x + w, i)
@@ -335,7 +337,7 @@ def pnp_admm_cnc(y, mask, cfg: ADMMConfig, denoise1: Denoise, denoise2: Optional
     ``denoise2`` defaults to ``denoise1``; two different denoisers are the
     reference's two-checkpoint ``PNP_ADMM_CNC_DnCNN`` (``【6】:372,517-519``).
     """
-    y, mask = _prepare(y, mask, device)
+    y, mask = prepare_inputs(y, mask, device)
     d2 = denoise2 if denoise2 is not None else denoise1
 
     def z_update(i, x, z, w):
@@ -351,7 +353,7 @@ def pnp_admm_l1_adaptive(y, mask, cfg: ADMMConfig, denoise: Denoise, gamma: floa
                          collect: bool = False, device=None):
     """PnP-ADMM with Chan-style rho continuation; the denoiser ignores the
     adapting rho (its strength follows the iteration schedule)."""
-    y, mask = _prepare(y, mask, device)
+    y, mask = prepare_inputs(y, mask, device)
 
     def z_update(i, x, z, w, rho_b):
         return denoise(x + w, i)

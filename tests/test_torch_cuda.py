@@ -1,6 +1,6 @@
 """CUDA kernels (the ADMM tails and the fused iteration) against their
-plain PyTorch versions, and the denoisers and a PnP-CNC step in float32
-against float64, on the card.
+plain PyTorch versions, and the denoisers, a PnP-CNC step and the FISTA,
+HQS, RED and consensus solvers in float32 against float64, on the card.
 
 These tests need a CUDA device (the kernels also nvcc), and skip without
 one. The file imports no JAX, so it also runs on a machine without it:
@@ -15,9 +15,10 @@ import torch
 import warnings
 
 from pnp_admm_cnc_mri_torch.config import ADMMConfig, PNP_CNC_DEFAULTS
-from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, tail_kernels
+from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, prox, tail_kernels
+from pnp_admm_cnc_mri_torch.parallel import consensus
 from pnp_admm_cnc_mri_torch.priors import denoiser
-from pnp_admm_cnc_mri_torch.solvers import admm
+from pnp_admm_cnc_mri_torch.solvers import admm, fista, hqs, red
 
 pytestmark = pytest.mark.cuda
 
@@ -242,7 +243,8 @@ def test_cluster_design_refuses_shapes_it_does_not_take(cuda_iteration):
 # (PERF.md); these narrow nets sum fewer terms.
 DENOISER_ATOL = 1e-5
 SMALL_DENOISERS = {"dncnn_25": dict(nc=16, nb=5), "fdncnn_gray": dict(nc=16, nb=5), "ircnn_gray": dict(nc=16),
-                   "ffdnet_gray": dict(nc=16, nb=5), "drunet_gray": dict(nc=16, nb=2, x8=True)}
+                   "ffdnet_gray": dict(nc=16, nb=5), "drunet_gray": dict(nc=16, nb=2, x8=True),
+                   "tdnet": dict(nc=16, nb=4, x8=True)}
 
 
 @pytest.fixture(scope="module")
@@ -291,3 +293,57 @@ def test_pnp_cnc_step_float32_matches_float64(card):
         assert bool(((a >= 0) & (a <= 1)).all())
         err = float((a.double() - r).abs().max())
         assert err < DENOISER_ATOL, err
+
+
+# Multi-iteration solves, float32 against float64: chip_smoke.py's limit for
+# its 4-iteration PnP solves (PnP-CNC showed 3.7e-6 at full width, PERF.md).
+SOLVE_ATOL = 5e-5
+
+
+def _observations(n_obs, rng):
+    img = rng.random((2, 64, 64))
+    masks = (rng.random((n_obs, 64, 64)) < 0.3).astype(np.float64)
+    masks[:, 0, 0] = 1.0
+    noise = 3.0 * (rng.normal(size=(64, 64)) + 1j * rng.normal(size=(64, 64)))
+    return np.fft.fft2(img)[:, None] * masks + noise, masks
+
+
+SOLVERS = {
+    "pnp_fista": lambda y, m, d, dt, dev: fista.pnp_fista(y[:, 0], m[0], 4, d, dtype=dt, device=dev)[0].x,
+    "pnp_pgd_cnc": lambda y, m, d, dt, dev: fista.pnp_pgd_cnc(y[:, 0], m[0], 4, d, lam=0.01, dtype=dt,
+                                                              device=dev)[0].x,
+    "pnp_hqs": lambda y, m, d, dt, dev: hqs.pnp_hqs(y[:, 0], m[0], 4, d, dtype=dt, device=dev)[0],
+    "red": lambda y, m, d, dt, dev: red.run_red(y[:, 0], m[0], 4, d, lam=0.3, dtype=dt, device=dev)[0],
+    "consensus_admm": lambda y, m, d, dt, dev: consensus.run_consensus(
+        y, m, ADMMConfig(iter_num=4, rho=1.2), z_prox=lambda v, i: prox.clip01(d(v, i)), dtype=dt, device=dev)[0],
+    "consensus_fista": lambda y, m, d, dt, dev: consensus.run_consensus_fista(
+        y, m, 4, lambda i, u: prox.clip01(d(u, i)), dtype=dt, device=dev),
+    "consensus_hqs": lambda y, m, d, dt, dev: consensus.run_consensus_hqs(y, m, 4, d, dtype=dt, device=dev),
+}
+
+
+@pytest.mark.parametrize("solver", list(SOLVERS))
+def test_solver_float32_matches_float64(card, solver):
+    """Each new solver with narrow DRUNet (x8 cycling), 4 iterations: three
+    observations an image for consensus, the first alone for the others."""
+    ys, masks = _observations(3, np.random.default_rng(4))
+    out = {}
+    for dtype, cplx in ((torch.float32, np.complex64), (torch.float64, np.complex128)):
+        d = _seeded_denoiser("drunet_gray", dtype, card)
+        out[dtype] = SOLVERS[solver](ys.astype(cplx), masks, d, dtype, card)
+    a, r = out[torch.float32], out[torch.float64]
+    assert a.dtype == torch.float32 and tuple(a.shape) == (2, 64, 64) and a.device.type == "cuda"
+    assert bool(((a >= 0) & (a <= 1)).all())
+    err = float((a.double() - r).abs().max())
+    assert err < SOLVE_ATOL, err
+
+
+def test_fista_l1_on_the_card_matches_the_cpu(card):
+    """cuFFT against the CPU's FFT, float64, 20 iterations, with objectives."""
+    ys, masks = _observations(1, np.random.default_rng(5))
+    runs = {dev: fista.fista_l1(ys[:, 0], masks[0], 20, lam=2e-3, dtype=torch.float64, collect_objective=True,
+                                device=dev) for dev in (card, "cpu")}
+    (gpu, gobj), (cpu, cobj) = runs[card], runs["cpu"]
+    assert gpu.x.device.type == "cuda" and gpu.t == cpu.t
+    assert float((gpu.x.cpu() - cpu.x).abs().max()) < 1e-12
+    assert float((gobj.cpu() - cobj).abs().max() / cobj.abs().max()) < 1e-12

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from pnp_admm_cnc_mri_tpu.models import dncnn as jdncnn
 from pnp_admm_cnc_mri_tpu.models import drunet as jdrunet
 from pnp_admm_cnc_mri_tpu.models import ffdnet as jffdnet
+from pnp_admm_cnc_mri_tpu.models import tdnet as jtdnet
 from pnp_admm_cnc_mri_tpu.ops import schedules as jschedules
 from pnp_admm_cnc_mri_tpu.priors import denoiser as jdn
 from pnp_admm_cnc_mri_tpu.priors import tiling as jtiling
@@ -65,6 +66,8 @@ SMALL = {
                                       np.float32(0.1))),
     "drunet_gray": (dict(nc=8, nb=1), lambda: flax_tree(jdrunet.UNetRes(out_nc=1, nc=(8, 16, 32, 64), nb=1),
                                                         np.zeros((1, 16, 16, 2), np.float32))),
+    "tdnet": (dict(nc=16, nb=4), lambda: flax_tree(jtdnet.TDNet(out_nc=1, nc=16, nb=4),
+                                                   np.zeros((1, 16, 16, 1), np.float32), np.float32(0.1))),
 }
 
 
@@ -86,7 +89,8 @@ def _pair(name, dtype, x8, **kw):
 @pytest.mark.parametrize("name", list(SMALL))
 def test_denoiser_matches_jax(name, dtype, x8):
     """Every iteration's forward (DRUNet's sigma rung and, with x8, its
-    dihedral transform; IRCNN's weight set) on a (2, 2, 32, 32) batch."""
+    dihedral transform; TDNet's rung and, with x8, the mean of all eight
+    transforms; IRCNN's weight set) on a (2, 2, 32, 32) batch."""
     kw = dict(noises=_noises()) if name == "fdncnn_gray" else {}
     ours, theirs = _pair(name, dtype, x8, **kw)
     v = np.random.default_rng(6).random((2, 2, 32, 32)).astype(NP[dtype])
@@ -130,7 +134,7 @@ def test_bf16_compute_dtype_tracks_float32():
     assert float((a - b).abs().max()) < 0.03
 
 
-@pytest.mark.parametrize("name", ["dncnn_25_clean", "drunet_gray_clean"])
+@pytest.mark.parametrize("name", ["dncnn_25_clean", "drunet_gray_clean", "tdnet_clean"])
 def test_shipped_weights_give_the_jax_forward(name):
     """The trained float16 zoo weights through both packages, float32 at 32 x 32."""
     path = os.path.join(REPO, "model_zoo", name + ".npz")
@@ -258,8 +262,6 @@ def test_construction_refusals(monkeypatch):
         dn.build_denoiser("fdncnn_gray", nc=4, nb=3, device=CPU)
     with pytest.raises(ValueError, match="unknown denoiser"):
         dn.build_denoiser("bm3d", device=CPU)
-    with pytest.raises(ValueError, match="tdnet"):
-        dn.build_denoiser("tdnet", device=CPU)
     with pytest.raises(ValueError, match=".npz"):
         dn.build_denoiser("dncnn_25", weights="dncnn_25.pth", device=CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -20,7 +20,8 @@ from pnp_admm_cnc_mri_tpu.models import convert as jconvert
 from pnp_admm_cnc_mri_tpu.models import dncnn as jdncnn
 from pnp_admm_cnc_mri_tpu.models import drunet as jdrunet
 from pnp_admm_cnc_mri_tpu.models import ffdnet as jffdnet
-from pnp_admm_cnc_mri_torch.models import blocks, convert, dncnn, drunet, ffdnet
+from pnp_admm_cnc_mri_tpu.models import tdnet as jtdnet
+from pnp_admm_cnc_mri_torch.models import blocks, convert, dncnn, drunet, ffdnet, tdnet
 
 ATOL = {torch.float64: 1e-9, torch.float32: 1e-4}
 NP = {torch.float64: np.float64, torch.float32: np.float32}
@@ -90,6 +91,30 @@ def test_ffdnet_matches_flax(hw, dtype):
     sigma = np.full((2, 1, 1, 1), 15.0 / 255.0, NP[dtype])
     got, ref = run_both(jffdnet.FFDNet(out_nc=1, nc=8, nb=4), ffdnet.FFDNet(1, 1, nc=8, nb=4), x, dtype, sigma)
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("hw", [(32, 32), (33, 31)])
+def test_tdnet_matches_flax(hw, dtype):
+    """The sigma channel after the four unshuffled ones; an odd size takes
+    the replication pad and the crop back. Flax's tree maps unchanged."""
+    x = np.random.default_rng(5).random((2, 1, *hw))
+    sigma = np.array([10.0, 25.0], NP[dtype]).reshape(2, 1, 1, 1) / 255.0
+    got, ref = run_both(jtdnet.TDNet(out_nc=1, nc=16, nb=4), tdnet.TDNet(1, 1, nc=16, nb=4), x, dtype, sigma)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL[dtype])
+
+
+def test_tdnet_with_a_zero_tail_is_the_identity():
+    """The network predicts the noise: with the tail's weights at 0 the
+    output is the input, at any sigma and any size."""
+    mod = convert.random_init_(tdnet.TDNet(1, 1, nc=8, nb=3).double())
+    with torch.no_grad():
+        mod.tail.conv.weight.zero_()
+        mod.tail.conv.bias.zero_()
+    x = torch.from_numpy(np.random.default_rng(6).random((3, 1, 17, 22)))
+    for sigma in (0.0, 0.2, torch.tensor([0.1, 0.2, 0.3], dtype=torch.float64)):
+        assert torch.equal(mod(x, sigma), x)
+    assert sorted(k for k in mod.state_dict() if k.startswith("head"))[0] == "head.conv.bias"
 
 
 @pytest.mark.parametrize("act", ["", "R", "L"])
