@@ -55,6 +55,20 @@ Phases, each timed and each fatal on failure:
            times ``fista_l1`` beside ``admm_l1(fused=True)``, the two FISTA
            solves, their iterations without the forwards, and the TDNet
            forward with its rate;
+- bm3d:    BM3D's white-noise core and its PnP prior (torch ops, no kernel of
+           its own). Float64 on the card against the port's CPU run at 2 x
+           64 x 64 (outputs and matched positions); two calls at 4 x 256 x 256
+           bit-equal; float32 against float64 there (max, mean, share of
+           groups whose used matches differ); the same call with TF32 set on
+           in the process; then, with the classical kernels' counts set to 0
+           just before and read just after (they stay 0), the reference's
+           PnP-ADMM-L1-BM3D and PnP-ADMM-CNC-BM3D at 4 x 256 x 256 x 50 and at
+           ``TUNED_BM3D`` (every image above its zero-filled PSNR; image 0 of
+           each 50-iteration solve within 0.5 dB of the JAX package's value),
+           and single runs of PnP-FISTA, PnP-PGD-CNC, PnP-HQS (the ladder
+           denoiser), RED and consensus-FISTA with BM3D at their tuned
+           settings; times a call at 1 and 4 images by stage, batch_chunk 1
+           against 4, the solves, the rest of an iteration, and peak memory;
 - timing:  CUDA-event medians of the solves, of each tail kernel against its
            plain version and its bound, and of the two designs' steps and
            the cuFFT path's iteration on the same state, in turns.
@@ -67,6 +81,7 @@ next to this file, or if any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -98,6 +113,35 @@ SOURCE = "pnp_admm_cnc_mri_torch/csrc/admm_tail.cu"
 FUSED_SOURCE = "pnp_admm_cnc_mri_torch/csrc/admm_iteration.cu"
 CLUSTER_SOURCE = "pnp_admm_cnc_mri_torch/csrc/admm_iteration_cluster.cu"
 FUSED_REPLACES = "pnp_admm_cnc_mri_tpu/ops/pallas_dc.py:83"
+# The JAX package's PSNRs (dB) on the bm3d phase's scenario (the first 4
+# images: phantoms seed 0, random_mask(0.3, seed 1), synth_noise(3.0, seed 2)):
+# its pnp_admm_l1 / pnp_admm_cnc with make_bm3d_denoiser, clamp=False,
+# float32 on the CPU, y formed by the port's fourier.observe on the CPU
+# (measured once for PR 9).
+JAX_BM3D_PSNR = {
+    "zero_filled": [22.12395529165549, 19.565282325608408, 21.453331130311334, 21.655239432027503],
+    "pnp_l1_bm3d": [23.433990565465454, 22.868420083629807, 23.283684286471143, 22.598501955588574],
+    "pnp_cnc_bm3d": [24.04999555227151, 24.5256190015893, 24.537814224863517, 24.986576022209576],
+    "pnp_l1_bm3d_tuned": [26.409124482075864, 23.662537460289368, 26.463342851453078, 25.351799261676756],
+    "pnp_cnc_bm3d_tuned": [28.128437785416768, 24.910459657766715, 28.313730357227914, 26.53097628798077],
+}
+# The 50-iteration solves are chaotic: a 1e-6 nudge of the images moves image
+# 0's PSNR over this band in the JAX package (min, max over 6 runs, the
+# unnudged one included; ``probes/bm3d_chaos.py jax 6``, PR 9), and over a
+# band as wide in the port (PERF.md). Image 0 of the port's solve is held to
+# within 0.5 dB of the JAX package's band, not of its one unnudged run.
+JAX_BM3D_BAND = {"pnp_l1_bm3d": (20.9329, 23.434), "pnp_cnc_bm3d": (24.05, 25.0092)}
+BM3D_50_DB = 0.5
+BM3D_TUNED_DB = 0.1  # each image of the 3- and 4-iteration solves against JAX
+# float32 against float64, one BM3D call at 4 x 256 x 256 (phantoms plus
+# numpy noise, seed 5): max 4.80e-4, mean 4.37e-7, and 0.17% of the Wiener
+# groups with other used matches, on the CPU and on the card alike; over
+# three other noise draws up to 1.49e-3, 1.47e-6 and 1.17%, where float32
+# rounding flips a few hard-threshold decisions and the Wiener matching
+# follows the moved pilot (probes/bm3d_precision.py, PERF.md, PR 9). The
+# limits, 4-7x the largest, take that spread and catch a reduced-precision
+# product, which would move every distance.
+BM3D_F32 = dict(max=1e-2, mean=1e-5, share=0.05)
 _T0 = time.perf_counter()
 
 
@@ -224,17 +268,22 @@ def main() -> dict:
     sys.path.insert(0, ROOT)
     from pnp_admm_cnc_mri_torch import ADMM_CNC_DEFAULT, ADMM_L1_DEFAULT, ADMMConfig
     from pnp_admm_cnc_mri_torch.config import (
+        PNP_CNC_BM3D_DEFAULT,
         PNP_CNC_DEFAULTS,
+        PNP_L1_BM3D_DEFAULT,
         PNP_L1_DEFAULTS,
+        TUNED_BM3D,
         TUNED_CONSENSUS_FISTA,
         TUNED_CONSENSUS_HQS,
         TUNED_FISTA_D,
         TUNED_HQS_D,
+        TUNED_PGD_CNC,
         TUNED_RED_D,
     )
     from pnp_admm_cnc_mri_torch.data import masks, noise, phantom
-    from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, metrics, prox, tail_kernels
-    from pnp_admm_cnc_mri_torch.priors import denoiser
+    from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, metrics, prox, schedules, tail_kernels
+    from pnp_admm_cnc_mri_torch.priors import bm3d_prior, denoiser
+    from pnp_admm_cnc_mri_torch.priors.bm3d import core as bm3d_core
     from pnp_admm_cnc_mri_torch.parallel import consensus
     from pnp_admm_cnc_mri_torch.solvers import admm, fista, hqs, red
 
@@ -712,6 +761,193 @@ def main() -> dict:
         f"float32 peak")
     del out, d_fista, d_hqs, d_red, d_td, d_td1, ys4, x_f
     phase("solvers", t)
+
+    # -- bm3d: the white-noise core, and the reference's PnP-ADMM-BM3D pipelines --
+    t = time.perf_counter()
+    sig = math.sqrt(0.03)  # make_bm3d_denoiser's default
+    prof = bm3d_core.DEFAULT_PROFILE
+    bs = prof.bs_ht  # the 'np' profile's stages share block size, step and search window
+    taus = {k: tm * prof.tau_scale * bs * bs / 255.0**2 for k, tm in (("ht", prof.tau_match_ht),
+                                                                      ("wiener", prof.tau_match_wie))}
+    offs = bm3d_core._offsets(prof.search_ht, bs)
+
+    def matches(a, k, tau):
+        ref = bm3d_core._ref_grid(a.shape[-1] - bs + 1, prof.step_ht)
+        return bm3d_core._match(a, ref, offs, bs, k, tau)
+
+    # 1. the card against the port's CPU run, float64, 2 x 64 x 64, sigma 0.1
+    rng_b = np.random.default_rng(11)
+    z_s = torch.from_numpy(img_np[:2, 96:160, 96:160].astype(np.float64) + 0.1 * rng_b.standard_normal((2, 64, 64)))
+    on_card, on_cpu = bm3d_core.bm3d(z_s, 0.1, device=dev), bm3d_core.bm3d(z_s, 0.1, device="cpu")
+    card_vs_cpu = float((on_card.cpu() - on_cpu).abs().max())
+    check(card_vs_cpu < 1e-9, f"bm3d float64 on the card vs the CPU: {card_vs_cpu}")
+    pilots = {d_: bm3d_core.ht_stage(z_s.to(d_), 0.1) for d_ in (dev, torch.device("cpu"))}
+    for stage, src, k in (("ht", lambda d_: z_s.to(d_), prof.max_3d_ht),
+                          ("wiener", lambda d_: pilots[d_], prof.max_3d_wie)):
+        got = matches(src(dev), k, taus[stage])
+        want = matches(src(torch.device("cpu")), k, taus[stage])
+        check(all(torch.equal(a_.cpu(), b_) for a_, b_ in zip(got, want)),
+              f"bm3d float64: the {stage} stage's matches differ between the card and the CPU")
+    # 2. two calls at 4 x 256 x 256 are bit-equal
+    den = bm3d_prior.make_bm3d_denoiser()
+    z4 = torch.from_numpy((img_np[:PNP_B] + sig * np.random.default_rng(5).standard_normal((PNP_B, H, W)))
+                          .astype(np.float32)).to(dev)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for cuBLAS before the bm3d phase")
+    out_a = den(z4, 0)
+    check(torch.equal(out_a, den(z4, 0)), "bm3d: two calls at 4 x 256 x 256 differ")
+    check(tuple(out_a.shape) == (PNP_B, H, W) and bool(torch.isfinite(out_a).all()), "bm3d: output not finite")
+    # 3. float32 against float64 at 4 x 256 x 256
+    z4d = z4.double()
+    d32 = (out_a.double() - den(z4d, 0)).abs()
+    share = {}
+    for stage, a32, a64, k in (("ht", z4, z4d, prof.max_3d_ht),
+                               ("wiener", bm3d_core.ht_stage(z4, sig, prefilter=False),
+                                bm3d_core.ht_stage(z4d, sig, prefilter=False), prof.max_3d_wie)):
+        (p32, c32), (p64, c64) = matches(a32, k, taus[stage]), matches(a64, k, taus[stage])
+        used = torch.arange(k, device=dev) < torch.minimum(c32, c64)[..., None]
+        share[stage] = float((((p32 != p64).any(-1) & used).any(-1) | (c32 != c64)).double().mean())
+    f32_err = {"max": float(d32.max()), "mean": float(d32.mean()), "share": max(share.values())}
+    check(all(f32_err[k] < BM3D_F32[k] for k in BM3D_F32), f"bm3d float32 vs float64: {f32_err} (limits {BM3D_F32})")
+    del z4d, d32
+    # 4. TF32 set on in the process changes nothing
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out_tf32 = den(z4, 0)
+        check(torch.backends.cuda.matmul.allow_tf32, "bm3d did not give the caller's TF32 setting back")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(torch.equal(out_tf32, out_a), "bm3d: TF32 on in the process changed the output")
+    log(f"bm3d: float64 card vs CPU {card_vs_cpu:.3g} (2x64x64, sigma 0.1; HT and Wiener matches identical); two "
+        f"calls at {PNP_B}x{H}x{W} bit-equal; float32 vs float64 max {f32_err['max']:.3g} mean {f32_err['mean']:.3g}, "
+        f"groups with other used matches: HT {share['ht']:.4%}, Wiener {share['wiener']:.4%} (limits {BM3D_F32}); "
+        f"TF32 on in the process: output bit-equal")
+    # 5, 6. the pipelines and the single runs, the classical kernels' counts at 0
+    y4, mask_b = y[:PNP_B].contiguous(), mask
+    zf4 = metrics.psnr(torch.abs(fourier.zero_fill(y4)) * 255.0, img4 * 255.0)
+
+    def var(nlm):
+        return (nlm / 255.0) ** 2
+
+    def tuned_cfg(key):
+        row = dict(TUNED_BM3D[key])
+        base_cfg = PNP_L1_BM3D_DEFAULT if key == "pnp_l1_bm3d" else PNP_CNC_BM3D_DEFAULT
+        return dataclasses.replace(base_cfg, **{k: v for k, v in row.items() if k != "nlm"}), row["nlm"]
+
+    (cfg_l1t, nlm_l1t), (cfg_cnct, nlm_cnct) = tuned_cfg("pnp_l1_bm3d"), tuned_cfg("pnp_cnc_bm3d")
+    rf, rp, rh, rr, rc = (TUNED_FISTA_D["bm3d"], TUNED_PGD_CNC["bm3d"], TUNED_HQS_D["bm3d"], TUNED_RED_D["bm3d"],
+                          TUNED_CONSENSUS_FISTA["bm3d"])
+    hqs_sigmas = schedules.get_rho_sigma(sigma=rh["sigma255"] / 255.0, iter_num=rh["iter_num"], model_sigma1=49.0,
+                                         model_sigma2=rh["nlm"])[1]
+    bm3d_ms = {}
+
+    def timed(name, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        bm3d_ms[name] = start.elapsed_time(end)
+        return res
+
+    ys4_b = fourier.observe(img4[:, None], masks3, torch.from_numpy(noise_np).to(dev))  # 3 observations an image
+    torch.cuda.synchronize()
+    tail_kernels.reset_launches()
+    fused_dc.reset_launches()
+    pipes = {
+        "pnp_l1_bm3d": timed("pnp_l1_bm3d_solve", lambda: admm.pnp_admm_l1(
+            y4, mask_b, PNP_L1_BM3D_DEFAULT, den, clamp=False)[0].x),
+        "pnp_cnc_bm3d": timed("pnp_cnc_bm3d_solve", lambda: admm.pnp_admm_cnc(
+            y4, mask_b, PNP_CNC_BM3D_DEFAULT, den, clamp=False)[0].x),
+        "pnp_l1_bm3d_tuned": admm.pnp_admm_l1(y4, mask_b, cfg_l1t, bm3d_prior.make_bm3d_denoiser(var(nlm_l1t)),
+                                              clamp=False)[0].x,
+        "pnp_cnc_bm3d_tuned": admm.pnp_admm_cnc(y4, mask_b, cfg_cnct, bm3d_prior.make_bm3d_denoiser(var(nlm_cnct)),
+                                                clamp=False)[0].x,
+    }
+    singles = {
+        "pnp_fista_bm3d": fista.pnp_fista(y4, mask_b, rf["iter_num"],
+                                          bm3d_prior.make_bm3d_denoiser(var(rf["nlm"])))[0].x,
+        "pnp_pgd_cnc_bm3d": fista.pnp_pgd_cnc(y4, mask_b, rp["iter_num"], bm3d_prior.make_bm3d_denoiser(var(rp["nlm"])),
+                                              alpha=rp["alpha"], lam=rp["lam"], b=rp["b"])[0].x,
+        "pnp_hqs_bm3d": hqs.pnp_hqs(y4, mask_b, rh["iter_num"], bm3d_prior.make_bm3d_ladder_denoiser(hqs_sigmas),
+                                    sigma255=rh["sigma255"], model_sigma1=49.0, model_sigma2=rh["nlm"])[0],
+        "red_bm3d": red.run_red(y4, mask_b, rr["iter_num"], bm3d_prior.make_bm3d_denoiser(var(rr["nlm"])),
+                                lam=rr["lam"])[0],
+        "consensus_fista_bm3d": consensus.run_consensus_fista(
+            ys4_b, masks3, rc["iter_num"], prox_of(bm3d_prior.make_bm3d_denoiser(var(rc["nlm"])))),
+    }
+    torch.cuda.synchronize()
+    bm3d_launches = {"l1_tail": tail_kernels.l1_tail.launches, "cnc_tail": tail_kernels.cnc_tail.launches,
+                     "fused_iteration": fused_dc.fused_iteration.launches}
+    check(bm3d_launches == dict.fromkeys(bm3d_launches, 0),
+          f"the BM3D paths launched a classical kernel: {bm3d_launches}")
+    bq = {"zero_filled": zf4.tolist()}
+    for k, xk in {**pipes, **singles}.items():
+        check(tuple(xk.shape) == (PNP_B, H, W) and xk.dtype == torch.float32, f"{k}: x is {xk.dtype} {tuple(xk.shape)}")
+        check(bool(torch.isfinite(xk).all()), f"{k}: non-finite output")
+        bq[k] = metrics.psnr(xk * 255.0, img4 * 255.0).tolist()
+    zf_mean = statistics.mean(bq["zero_filled"])
+    above_zf = {}
+    for k in pipes:
+        above = [a_ > b_ for a_, b_ in zip(bq[k], bq["zero_filled"])]
+        if k == "pnp_l1_bm3d":
+            # a 1e-6 nudge takes image 0 of the JAX package's own solve below its
+            # zero-filled PSNR (20.93 < 22.12 dB, the band above), so the batch mean
+            # is held above the zero-filled mean, and the images are printed
+            check(statistics.mean(bq[k]) > zf_mean, f"{k}: mean PSNR {bq[k]} not above the zero-filled mean {zf_mean}")
+        else:
+            check(all(above), f"{k}: PSNR {bq[k]} not above the zero-filled {bq['zero_filled']} on every image")
+        if k.endswith("tuned"):
+            check(all(abs(a_ - b_) < BM3D_TUNED_DB for a_, b_ in zip(bq[k], JAX_BM3D_PSNR[k])),
+                  f"{k}: PSNR {bq[k]} vs the JAX package's {JAX_BM3D_PSNR[k]}")
+        else:
+            lo, hi = JAX_BM3D_BAND[k]
+            check(lo - BM3D_50_DB < bq[k][0] < hi + BM3D_50_DB,
+                  f"{k}: image 0 at {bq[k][0]} dB, outside the JAX package's band {lo}..{hi} +- {BM3D_50_DB}")
+        above_zf[k] = sum(above)
+    log(f"bm3d: classical kernel launches on the BM3D paths {json.dumps(bm3d_launches)}; PSNR per image (dB; JAX "
+        f"package on the CPU in brackets) " + "; ".join(
+            f"{k} {[round(v, 3) for v in bq[k]]}" + (f" [{[round(v, 3) for v in JAX_BM3D_PSNR[k]]}]"
+                                                     if k in JAX_BM3D_PSNR else "") for k in bq)
+        + f"; images above their zero-filled PSNR {json.dumps(above_zf)} of {PNP_B}; JAX package's image-0 bands "
+        f"{json.dumps(JAX_BM3D_BAND)}"
+        + f"; no iteration cut (PnP-FISTA {rf['iter_num']}, PnP-PGD-CNC {rp['iter_num']}, PnP-HQS {rh['iter_num']}, "
+        f"RED {rr['iter_num']}, consensus-FISTA {rc['iter_num']} iterations)")
+    # 7. timing: a call by stage at 1 and 4 images, the chunking, the rest of an iteration, peak memory
+    z1 = z4[:1].contiguous()
+    for tag, zz in (("1", z1), (str(PNP_B), z4)):
+        pilot = bm3d_core.ht_stage(zz, sig, prefilter=False)
+        bm3d_ms[f"ht_stage_x{tag}"] = cuda_ms(lambda: bm3d_core.ht_stage(zz, sig, prefilter=False))
+        bm3d_ms[f"wiener_stage_x{tag}"] = cuda_ms(lambda: bm3d_core.wiener_stage(zz, pilot, sig))
+        bm3d_ms[f"call_x{tag}"] = cuda_ms(lambda: bm3d_core.bm3d(zz, sig, prefilter=False, device=dev))
+    for chunk in (1, PNP_B):
+        d_c = bm3d_prior.make_bm3d_denoiser(batch_chunk=chunk)
+        bm3d_ms[f"denoiser_x{PNP_B}_chunk{chunk}"] = cuda_ms(lambda: d_c(z4, 0))
+    ident = lambda v, i: v  # noqa: E731
+    bm3d_ms["pnp_l1_identity_solve"] = cuda_ms(lambda: admm.pnp_admm_l1(y4, mask_b, PNP_L1_BM3D_DEFAULT, ident,
+                                                                         clamp=False))
+    bm3d_ms["pnp_cnc_identity_solve"] = cuda_ms(lambda: admm.pnp_admm_cnc(y4, mask_b, PNP_CNC_BM3D_DEFAULT, ident,
+                                                                           clamp=False))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    den(z4, 0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    it_l1, it_cnc = PNP_L1_BM3D_DEFAULT.iter_num, PNP_CNC_BM3D_DEFAULT.iter_num
+    per_l1 = bm3d_ms["pnp_l1_bm3d_solve"] / it_l1
+    per_cnc = bm3d_ms["pnp_cnc_bm3d_solve"] / it_cnc
+    rest_l1 = bm3d_ms["pnp_l1_identity_solve"] / it_l1
+    rest_cnc = bm3d_ms["pnp_cnc_identity_solve"] / it_cnc
+    log(f"timing bm3d ({PNP_B} x {H} x {W}, float32, profile 'np', CUDA events, ms; the 50-iteration solves once, "
+        f"on their driven runs): {json.dumps(bm3d_ms)}; PnP-L1-BM3D {per_l1:.3f} ms an iteration, of which all "
+        f"but the rest (the solve with an identity denoiser) {rest_l1:.4f} ({rest_l1 / per_l1:.2%}) is BM3D; "
+        f"PnP-CNC-BM3D {per_cnc:.3f} ms an iteration, the rest {rest_cnc:.4f} ({rest_cnc / per_cnc:.2%}); "
+        f"batch_chunk 1 vs {PNP_B}: "
+        f"{bm3d_ms[f'denoiser_x{PNP_B}_chunk1']:.3f} vs {bm3d_ms[f'denoiser_x{PNP_B}_chunk{PNP_B}']:.3f} (default "
+        f"{bm3d_prior.default_batch_chunk()}); peak memory of one call at {PNP_B} x {H} x {W} above what was "
+        f"allocated {peak / 2**20:.1f} MiB")
+    del pipes, singles, out_a, out_tf32, z4, z1, ys4_b, pilots
+    phase("bm3d", t)
 
     # -- timing ----------------------------------------------------------------
     t = time.perf_counter()

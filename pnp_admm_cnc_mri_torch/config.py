@@ -1,7 +1,6 @@
 """Solver configuration: a copy of the JAX package's ``config.py:16-282``
-restricted to what the ported solvers use: ADMM (classical and PnP), FISTA
-and PGD, HQS, RED and single-device consensus. The ``bm3d`` rows are kept
-as data; no BM3D prior is ported yet."""
+restricted to what the ported solvers use: ADMM (classical and PnP, with the
+CNN and BM3D priors), FISTA and PGD, HQS, RED and single-device consensus."""
 
 from __future__ import annotations
 
@@ -60,8 +59,12 @@ PNP_CNC_DEFAULTS = {
     "drunet_gray": (1.0, 50, 0.8, 0.8, 0.45),
 }
 
+# Classical defaults (reference ``【1】ADMM_L1.py:171``, ``【4】ADMM_CNC .py:176``,
+# ``【2】PNP_ADMM_L1_BM3D .py:174``, ``【5】PNP_ADMM_CNC_BM3D .py:183``).
 ADMM_L1_DEFAULT = ADMMConfig(iter_num=50, lam=0.1, rho=0.015)
 ADMM_CNC_DEFAULT = ADMMConfig(iter_num=50, lam=0.5, rho=0.05, alpha=0.45, b=64.0)
+PNP_L1_BM3D_DEFAULT = ADMMConfig(iter_num=50, rho=0.8)
+PNP_CNC_BM3D_DEFAULT = ADMMConfig(iter_num=50, lam=0.02, rho=0.6, alpha=1.2, b=36.0)
 
 # Tuned settings found by sweep against the self-trained zoo weights
 # (the JAX package's docs/USAGE.md): ADMMConfig overrides plus the denoiser
@@ -81,6 +84,12 @@ TUNED_PNP_CNC = {
     "ircnn_gray": dict(iter_num=6, alpha=1.0, nlm=8.0),
     "drunet_gray": dict(iter_num=4, alpha=1.8),
     "dncnn_pair": dict(iter_num=5, alpha=0.7),
+}
+# The BM3D pipelines: ADMMConfig overrides of PNP_*_BM3D_DEFAULT, and ``nlm``,
+# the BM3D sigma on the [0, 255] scale (``noise_var = (nlm / 255)^2``).
+TUNED_BM3D = {
+    "pnp_l1_bm3d": dict(iter_num=3, rho=1.0, nlm=15.0),
+    "pnp_cnc_bm3d": dict(iter_num=4, alpha=1.6, nlm=25.0),
 }
 
 # Multi-mask consensus-ADMM with a denoiser z-prox (parallel/consensus.py).

@@ -73,13 +73,18 @@ def full_precision_matmul():
     DFT cost 0.5 dB of reconstruction PSNR, so reduced-precision products
     stay off there until a measurement shows them harmless, whatever
     precision the caller chose for the rest of the process.
+
+    Only cuBLAS's flag is read and set: torch's process-wide
+    ``get_float32_matmul_precision`` raises once the caller has set the
+    per-backend flags apart (``allow_tf32`` after a
+    ``set_float32_matmul_precision``).
     """
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prev)
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _dft_mats(n: int, dtype: torch.dtype, device=None):

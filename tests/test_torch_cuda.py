@@ -1,6 +1,8 @@
 """CUDA kernels (the ADMM tails and the fused iteration) against their
 plain PyTorch versions, and the denoisers, a PnP-CNC step and the FISTA,
-HQS, RED and consensus solvers in float32 against float64, on the card.
+HQS, RED and consensus solvers in float32 against float64, on the card;
+BM3D and PnP-ADMM with BM3D on the card against the CPU in float64, its
+repeatability and its guard against TF32.
 
 These tests need a CUDA device (the kernels also nvcc), and skip without
 one. The file imports no JAX, so it also runs on a machine without it:
@@ -14,10 +16,11 @@ import torch
 
 import warnings
 
-from pnp_admm_cnc_mri_torch.config import ADMMConfig, PNP_CNC_DEFAULTS
+from pnp_admm_cnc_mri_torch.config import PNP_CNC_BM3D_DEFAULT, PNP_L1_BM3D_DEFAULT, ADMMConfig, PNP_CNC_DEFAULTS
 from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, prox, tail_kernels
 from pnp_admm_cnc_mri_torch.parallel import consensus
-from pnp_admm_cnc_mri_torch.priors import denoiser
+from pnp_admm_cnc_mri_torch.priors import bm3d_prior, denoiser
+from pnp_admm_cnc_mri_torch.priors.bm3d import core as bm3d_core
 from pnp_admm_cnc_mri_torch.solvers import admm, fista, hqs, red
 
 pytestmark = pytest.mark.cuda
@@ -347,3 +350,72 @@ def test_fista_l1_on_the_card_matches_the_cpu(card):
     assert gpu.x.device.type == "cuda" and gpu.t == cpu.t
     assert float((gpu.x.cpu() - cpu.x).abs().max()) < 1e-12
     assert float((gobj.cpu() - cobj).abs().max() / cobj.abs().max()) < 1e-12
+
+
+# -- BM3D ------------------------------------------------------------------------
+
+
+def _bm3d_images(b, n, seed, noise=0.1):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:n, :n]
+    base = np.where((xx - n / 2) ** 2 + (yy - n / 2) ** 2 < (n / 3) ** 2, 0.5 + 0.3 * np.sin(xx / 5.0), 0.0)
+    return base + noise * rng.standard_normal((b, n, n))
+
+
+def test_bm3d_on_the_card_matches_the_cpu_in_float64(card):
+    """2 x 64 x 64 at sigma 0.1: the distances are the same sums on both
+    devices, so the HT stage's matches are identical, and so are the Wiener
+    stage's on each device's own pilot; the outputs agree to rounding."""
+    z = torch.from_numpy(_bm3d_images(2, 64, 6))
+    ref, offs = bm3d_core._ref_grid(57, 3), bm3d_core._offsets(39, 8)
+    p = bm3d_core.DEFAULT_PROFILE
+    tau_ht = p.tau_match_ht * p.tau_scale * 64 / 255.0**2
+    tau_wie = p.tau_match_wie * p.tau_scale * 64 / 255.0**2
+    on_card = bm3d_core._match(z.to(card), ref, offs, 8, 16, tau_ht)
+    on_cpu = bm3d_core._match(z, ref, offs, 8, 16, tau_ht)
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    ht_gpu, ht_cpu = bm3d_core.ht_stage(z.to(card), 0.1), bm3d_core.ht_stage(z, 0.1)
+    assert float((ht_gpu.cpu() - ht_cpu).abs().max()) < 1e-12
+    on_card = bm3d_core._match(ht_gpu, ref, offs, 8, 32, tau_wie)
+    on_cpu = bm3d_core._match(ht_cpu, ref, offs, 8, 32, tau_wie)
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    gpu, cpu = bm3d_core.bm3d(z, 0.1, device=card), bm3d_core.bm3d(z, 0.1, device="cpu")
+    assert gpu.device.type == "cuda" and gpu.dtype == torch.float64
+    assert float((gpu.cpu() - cpu).abs().max()) < 1e-12
+
+
+def test_bm3d_repeated_calls_are_bit_equal_on_the_card(card):
+    z = torch.from_numpy(_bm3d_images(4, 128, 7, noise=0.17)).float().to(card)
+    den = bm3d_prior.make_bm3d_denoiser()
+    a, b = den(z, 0), den(z, 0)
+    assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+
+
+def test_bm3d_ignores_tf32_set_in_the_process(card):
+    z = torch.from_numpy(_bm3d_images(2, 128, 8, noise=0.17)).float().to(card)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = bm3d_core.bm3d(z, 0.17, device=card)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = bm3d_core.bm3d(z, 0.17, device=card)
+        assert torch.backends.cuda.matmul.allow_tf32  # the call gives the caller's setting back
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert torch.equal(on, off)
+
+
+@pytest.mark.parametrize("scheme", ["l1", "cnc"])
+def test_pnp_admm_bm3d_on_the_card_matches_the_cpu(card, scheme):
+    """The reference's BM3D pipelines at their defaults, 3 iterations,
+    ``clamp=False``, float64."""
+    ys, masks = _observations(1, np.random.default_rng(9))
+    base = PNP_L1_BM3D_DEFAULT if scheme == "l1" else PNP_CNC_BM3D_DEFAULT
+    cfg = ADMMConfig(iter_num=3, rho=base.rho, lam=base.lam, alpha=base.alpha, b=base.b)
+    solve = admm.pnp_admm_l1 if scheme == "l1" else admm.pnp_admm_cnc
+    runs = {dev: solve(ys[:, 0], masks[0], cfg, bm3d_prior.make_bm3d_denoiser(), clamp=False, dtype=torch.float64,
+                       device=dev)[0] for dev in (card, "cpu")}
+    for a, b in zip(runs[card], runs["cpu"]):
+        assert float((a.cpu() - b).abs().max()) < 1e-9

@@ -132,16 +132,33 @@ def test_tf32_is_off_for_the_dft_products(monkeypatch):
         orig = getattr(fourier, name)
 
         def spy(*a, _orig=orig, **k):
-            seen.append(torch.get_float32_matmul_precision())
+            seen.append(torch.backends.cuda.matmul.allow_tf32)
             return _orig(*a, **k)
 
         monkeypatch.setattr(fourier, name, spy)
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("high")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
     try:
         dc(_t(img))
-        after = torch.get_float32_matmul_precision()
+        after = torch.backends.cuda.matmul.allow_tf32
     finally:
-        torch.set_float32_matmul_precision(prev)
-    assert seen == ["highest", "highest"]
-    assert after == "high"
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert seen == [False, False]
+    assert after is True
+
+
+def test_precision_guard_takes_flags_set_apart_by_the_caller():
+    """A caller that set the process-wide precision and then cuBLAS's flag
+    alone (torch's getter of the process-wide value raises then) still gets
+    full precision inside and its own flags back."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.set_float32_matmul_precision("high")
+        for caller in (False, True, False):
+            torch.backends.cuda.matmul.allow_tf32 = caller
+            with fourier.full_precision_matmul():
+                assert torch.backends.cuda.matmul.allow_tf32 is False
+            assert torch.backends.cuda.matmul.allow_tf32 is caller
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = prev
