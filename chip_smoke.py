@@ -69,6 +69,32 @@ Phases, each timed and each fatal on failure:
            denoiser), RED and consensus-FISTA with BM3D at their tuned
            settings; times a call at 1 and 4 images by stage, batch_chunk 1
            against 4, the solves, the rest of an iteration, and peak memory;
+- restore: the DPIR restoration pipelines (``cli/experiments.py``) at 4 x 256
+           x 256, 8 iterations, with the classical kernels' counts set to 0
+           at the phase's start and read at its end (they stay 0): PnP
+           deblurring (``make_blur_kernel('aniso')``, 2.55/255 noise) and
+           PnP super-resolution x2 (9 x 9 anisotropic Gaussian, 1.5/255
+           noise), each with the BM3D ladder prior (every image within 0.1
+           dB of the JAX package's PSNR, and the degraded inputs too) and
+           with full-width DRUNet at ``TUNED_DEBLUR`` / ``TUNED_SR`` (seeded
+           weights); DRUNet's runs in float32 against float64 over 2
+           iterations; ``wrap_convolve``, ``deblur_solution`` and
+           ``data_solution`` in float32 on the card against float64 on the
+           CPU; times each solve and one iteration's data solve against the
+           denoiser call;
+- bm3d_colored: the colored-noise BM3D and the BM3D API, the counts at 0
+           as above. Float64 on the card against the port's CPU run at 4 x
+           64 x 64 (exact variances; outputs and matches); at 4 x 256 x 256,
+           float32, ``bm3d_colored_auto`` at explicit parameters (exact
+           variances) for the g1, g2, g4 and gw noise families and
+           ``bm3d_colored(exact=False)`` for g1 (image 0 within 0.1 dB of the
+           JAX package's PSNR), two calls bit-equal, TF32 set on in the
+           process changing nothing; single runs of ``api.bm3d`` (a flat PSD;
+           ``stage_arg``), ``bm3d_with_blockmatches`` reused,
+           ``bm3d_refilter``, ``bm3d_rgb`` and ``bm3d_multichannel`` on a
+           3-channel stack of phantoms, and ``bm3d_deblurring`` (white; each
+           image within 0.1 dB of the JAX package's PSNR); times a call by
+           stage, the host's PSD work, and its peak memory;
 - timing:  CUDA-event medians of the solves, of each tail kernel against its
            plain version and its bound, and of the two designs' steps and
            the cuFFT path's iteration on the same state, in turns.
@@ -142,6 +168,35 @@ BM3D_TUNED_DB = 0.1  # each image of the 3- and 4-iteration solves against JAX
 # limits, 4-7x the largest, take that spread and catch a reduced-precision
 # product, which would move every distance.
 BM3D_F32 = dict(max=1e-2, mean=1e-5, share=0.05)
+# The JAX package's PSNRs (dB, outputs clipped to [0, 1]) on the restore and
+# bm3d_colored phases' scenarios, float32 on the CPU (measured once, PERF.md):
+# mri_phantoms(4, 256, seed 0); deblurring with make_blur_kernel('aniso') and
+# 2.55/255 times default_rng(3) noise, SR x2 with the 9 x 9 anisotropic
+# Gaussian and 1.5/255 times default_rng(4) noise, the BM3D ladder prior, 8
+# iterations; colored BM3D on image 0, variance 0.02, realization 0, the
+# kernel and PSD of get_experiment_noise at 256 x 256, explicit parameters.
+JAX_RESTORE_PSNR = {
+    "deblur_degraded": [33.634, 31.255, 33.463, 32.553],
+    "deblur_bm3d": [43.882, 43.292, 44.938, 43.353],
+    "sr_kron": [30.866, 28.104, 30.465, 29.773],
+    "sr_bm3d": [43.187, 38.092, 42.778, 42.332],
+}
+COLORED_FAMILIES = ("g1", "g2", "g4", "gw")
+JAX_COLORED_PSNR = {
+    "noisy_g1": 18.757, "noisy_g2": 18.853, "noisy_g4": 18.828, "noisy_gw": 18.779,
+    "exact_g1": 29.112, "exact_g2": 35.477, "exact_g4": 30.108, "exact_gw": 37.255,
+    "approx_g1": 20.446,
+}
+# api.bm3d_deblurring(colored=False) at its default reg 1e-2 on the four
+# phantoms blurred by make_blur_kernel('aniso') plus 0.01 times default_rng(11)
+# noise (float32): below the blurred input's PSNR, in the JAX package too
+JAX_DEBLURRING_WHITE_PSNR = [30.283, 27.784, 30.802, 29.792]
+RESTORE_DB = 0.1
+# restoration with full-width DRUNet (seeded weights), float32 against float64,
+# 2 iterations, on this phase's inputs (2 x 256 x 256): 3.6e-7 (deblurring) and
+# 4.0e-6 (SR) on the CPU (PERF.md); the limit is about 12x the larger.
+# SR's first rung has rho ~2e-4, whose 1/rho amplifies float32 roundings.
+RESTORE_DRUNET_ATOL = 5e-5
 _T0 = time.perf_counter()
 
 
@@ -178,6 +233,18 @@ def cuda_ms(fn, reps: int = 5, inner: int = 1, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def event_ms(fn):
+    """(fn's result, its CUDA-event time in ms) of one call."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    end.synchronize()
+    return res, start.elapsed_time(end)
 
 
 def conv_flops(denoise, v) -> int:
@@ -267,6 +334,7 @@ def main() -> dict:
         raise SystemExit("chip_smoke: the package pnp_admm_cnc_mri_torch is not next to this script")
     sys.path.insert(0, ROOT)
     from pnp_admm_cnc_mri_torch import ADMM_CNC_DEFAULT, ADMM_L1_DEFAULT, ADMMConfig
+    from pnp_admm_cnc_mri_torch.cli import experiments
     from pnp_admm_cnc_mri_torch.config import (
         PNP_CNC_BM3D_DEFAULT,
         PNP_CNC_DEFAULTS,
@@ -275,14 +343,17 @@ def main() -> dict:
         TUNED_BM3D,
         TUNED_CONSENSUS_FISTA,
         TUNED_CONSENSUS_HQS,
+        TUNED_DEBLUR,
         TUNED_FISTA_D,
         TUNED_HQS_D,
         TUNED_PGD_CNC,
         TUNED_RED_D,
+        TUNED_SR,
     )
     from pnp_admm_cnc_mri_torch.data import masks, noise, phantom
-    from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, metrics, prox, schedules, tail_kernels
+    from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, metrics, prox, schedules, sisr, tail_kernels
     from pnp_admm_cnc_mri_torch.priors import bm3d_prior, denoiser
+    from pnp_admm_cnc_mri_torch.priors.bm3d import api as bm3d_api
     from pnp_admm_cnc_mri_torch.priors.bm3d import core as bm3d_core
     from pnp_admm_cnc_mri_torch.parallel import consensus
     from pnp_admm_cnc_mri_torch.solvers import admm, fista, hqs, red
@@ -841,12 +912,7 @@ def main() -> dict:
     bm3d_ms = {}
 
     def timed(name, fn):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = fn()
-        end.record()
-        end.synchronize()
-        bm3d_ms[name] = start.elapsed_time(end)
+        res, bm3d_ms[name] = event_ms(fn)
         return res
 
     ys4_b = fourier.observe(img4[:, None], masks3, torch.from_numpy(noise_np).to(dev))  # 3 observations an image
@@ -948,6 +1014,251 @@ def main() -> dict:
         f"allocated {peak / 2**20:.1f} MiB")
     del pipes, singles, out_a, out_tf32, z4, z1, ys4_b, pilots
     phase("bm3d", t)
+
+    # -- restore: the DPIR restoration pipelines (PnP deblurring and SR x2) ----
+    t = time.perf_counter()
+    tail_kernels.reset_launches()
+    fused_dc.reset_launches()
+    x4 = torch.from_numpy(phantom.mri_phantoms(PNP_B, H, seed=0)).to(dev)
+    noise_deblur = np.random.default_rng(3).standard_normal((PNP_B, H, W)).astype(np.float32)
+    noise_sr = np.random.default_rng(4).standard_normal((PNP_B, H // 2, W // 2)).astype(np.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # seeded DRUNet weights: the zoo is not copied to the card
+        # TUNED_DEBLUR and TUNED_SR give DRUNet the same row (8 iterations, nlm 2), so one network serves both
+        check(TUNED_DEBLUR["drunet_gray"] == TUNED_SR["drunet_gray"], "the tuned DRUNet rows differ")
+        row = TUNED_DEBLUR["drunet_gray"]
+        den_dru = experiments._restoration_prior("drunet_gray", row["iter_num"], row["nlm"], None, None, False, None,
+                                                 False, device=dev)
+    runs = {
+        "deblur_bm3d": (experiments.run_deblur, dict(model_name="bm3d", iter_num=8, noise=noise_deblur)),
+        "sr_bm3d": (experiments.run_sr, dict(model_name="bm3d", sf=2, iter_num=8, noise=noise_sr)),
+        "deblur_drunet": (experiments.run_deblur, dict(denoise=den_dru, noise=noise_deblur, **row)),
+        "sr_drunet": (experiments.run_sr, dict(denoise=den_dru, sf=2, noise=noise_sr, **row)),
+    }
+    restore_ms, restored, degraded = {}, {}, {}
+    for k, (fn, kw) in runs.items():
+        fn(x4, **{**kw, "iter_num": 1})  # warm-up
+        (degraded[k], restored[k]), restore_ms[k] = event_ms(lambda: fn(x4, **kw))
+    torch.cuda.synchronize()
+    restore_launches = {"l1_tail": tail_kernels.l1_tail.launches, "cnc_tail": tail_kernels.cnc_tail.launches,
+                        "fused_iteration": fused_dc.fused_iteration.launches}
+    check(restore_launches == dict.fromkeys(restore_launches, 0),
+          f"the restoration paths launched a classical kernel: {restore_launches}")
+
+    def psnr01(a):
+        return metrics.psnr(a.clamp(0.0, 1.0) * 255.0, x4 * 255.0).tolist()
+
+    rq = {"deblur_degraded": psnr01(degraded["deblur_bm3d"]),
+          "sr_kron": psnr01(degraded["sr_bm3d"].repeat_interleave(2, -2).repeat_interleave(2, -1))}
+    for k, zk in restored.items():
+        check(tuple(zk.shape) == (PNP_B, H, W) and zk.dtype == torch.float32, f"{k}: {zk.dtype} {tuple(zk.shape)}")
+        check(bool(torch.isfinite(zk).all()), f"{k}: non-finite output")
+        rq[k] = psnr01(zk)
+    for k in ("deblur_degraded", "sr_kron", "deblur_bm3d", "sr_bm3d"):
+        check(all(abs(a_ - b_) < RESTORE_DB for a_, b_ in zip(rq[k], JAX_RESTORE_PSNR[k])),
+              f"{k}: PSNR {rq[k]} vs the JAX package's {JAX_RESTORE_PSNR[k]} (+- {RESTORE_DB} dB)")
+    for k, base in (("deblur_bm3d", "deblur_degraded"), ("sr_bm3d", "sr_kron")):
+        check(all(a_ > b_ for a_, b_ in zip(rq[k], rq[base])), f"{k}: PSNR {rq[k]} not above {base} {rq[base]}")
+    # float32 against float64 on the card: DRUNet (seeded weights), 2 iterations, 2 images
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        f3264 = {}
+        for k, fn, nz in (("deblur", experiments.run_deblur, noise_deblur), ("sr", experiments.run_sr, noise_sr)):
+            outs = [fn(x4[:2], model_name="drunet_gray", iter_num=2, nlm=2.0, noise=nz[:2], dtype=dt_)[1]
+                    for dt_ in (torch.float32, torch.float64)]
+            f3264[k] = float((outs[0].double() - outs[1]).abs().max())
+    check(all(v < RESTORE_DRUNET_ATOL for v in f3264.values()),
+          f"restoration with DRUNet, float32 vs float64 on the card: {f3264} (limit {RESTORE_DRUNET_ATOL})")
+    # the operators, float32 on the card against float64 on the CPU, at the last rung's rho
+    k_ani = experiments.make_blur_kernel("aniso")
+    k_sr = sisr.anisotropic_gaussian(ksize=9, theta=0.7, l1=2.5, l2=1.0)
+    y_d, y_s = degraded["deblur_bm3d"], degraded["sr_bm3d"]
+    rho_d = float(schedules.get_rho_sigma(sigma=2.55 / 255.0, iter_num=8, model_sigma2=2.55)[0][-1])
+    rho_s = float(schedules.get_rho_sigma(sigma=1.5 / 255.0, iter_num=8, model_sigma2=2.0)[0][-1])
+    op_err = {}
+    for name, fn in (
+        ("wrap_convolve", lambda yy, zz, k_: sisr.wrap_convolve(zz, torch.as_tensor(k_ani, dtype=zz.dtype,
+                                                                                    device=zz.device))),
+        ("deblur_solution", lambda yy, zz, k_: sisr.deblur_solution(zz, *sisr.pre_calculate(yy, k_, 1)[2:], rho_d)),
+        ("data_solution", lambda yy, zz, k_: sisr.data_solution(zz, *sisr.pre_calculate(yy, k_, 2), rho_s, 2)),
+    ):
+        yy = y_s if name == "data_solution" else y_d
+        k_ = torch.as_tensor(k_sr if name == "data_solution" else k_ani)
+        on_card = fn(yy, x4, k_.float().to(dev))
+        on_cpu = fn(yy.double().cpu(), x4.double().cpu(), k_.double())
+        op_err[name] = float((on_card.double().cpu() - on_cpu).abs().max())
+    check(all(v < 1e-5 for v in op_err.values()), f"sisr operators, float32 card vs float64 CPU: {op_err}")
+    # one iteration's data solve against the denoiser call
+    f2b_d, fbfy_d = sisr.pre_calculate(y_d, torch.as_tensor(k_ani, dtype=torch.float32, device=dev), 1)[2:]
+    spectra_s = sisr.pre_calculate(y_s, torch.as_tensor(k_sr, dtype=torch.float32, device=dev), 2)
+    lad_d = schedules.get_rho_sigma(sigma=2.55 / 255.0, iter_num=8, model_sigma2=2.55)[1]
+    den_bm3d = bm3d_prior.make_bm3d_ladder_denoiser(lad_d)
+    xin = restored["deblur_bm3d"]
+    restore_ms["deblur_solution"] = cuda_ms(lambda: sisr.deblur_solution(xin, f2b_d, fbfy_d, rho_d), inner=10)
+    restore_ms["data_solution_sr2"] = cuda_ms(lambda: sisr.data_solution(xin, *spectra_s, rho_s, 2), inner=10)
+    restore_ms["bm3d_ladder_call"] = cuda_ms(lambda: den_bm3d(xin, 7))
+    restore_ms["drunet_call"] = cuda_ms(lambda: den_dru(xin, 7))
+    log(f"restore: classical kernel launches {json.dumps(restore_launches)}; PSNR per image (dB, clipped to [0, 1]; "
+        "the JAX package on the CPU, float32, in brackets) " + "; ".join(
+            f"{k} {[round(v, 3) for v in rq[k]]}" + (f" [{JAX_RESTORE_PSNR[k]}]" if k in JAX_RESTORE_PSNR else "")
+            for k in rq) + f" (DRUNet: seeded weights, no quality claimed); DRUNet float32 vs float64 on the card, "
+        f"2 iterations, 2 x {H} x {W}: {json.dumps(f3264)} (limit {RESTORE_DRUNET_ATOL}); sisr operators float32 "
+        f"card vs float64 CPU at the last rung's rho: {json.dumps(op_err)}")
+    log(f"timing restore ({PNP_B} x {H} x {W}, float32, 8 iterations, CUDA events, ms): {json.dumps(restore_ms)}; "
+        f"an iteration: deblur BM3D {restore_ms['deblur_bm3d'] / 8:.3f} (data solve "
+        f"{restore_ms['deblur_solution']:.4f} = {restore_ms['deblur_solution'] / restore_ms['bm3d_ladder_call']:.2%} "
+        f"of the BM3D call), deblur DRUNet {restore_ms['deblur_drunet'] / 8:.3f} (data solve "
+        f"{restore_ms['deblur_solution'] / restore_ms['drunet_call']:.2%} of the forward), SR BM3D "
+        f"{restore_ms['sr_bm3d'] / 8:.3f}, SR DRUNet {restore_ms['sr_drunet'] / 8:.3f} (SR data solve "
+        f"{restore_ms['data_solution_sr2']:.4f})")
+    del restored, degraded, den_bm3d, den_dru, xin
+    phase("restore", t)
+
+    # -- bm3d_colored: the colored-noise core and the BM3D API -----------------
+    t = time.perf_counter()
+    tail_kernels.reset_launches()
+    fused_dc.reset_launches()
+    kernels_fam = {f: noise.get_experiment_kernel(f, 0.02, (H, W)) for f in COLORED_FAMILIES}
+    psds = {f: noise.experiment_psd(k_, (H, W)) for f, k_ in kernels_fam.items()}
+    x4np = phantom.mri_phantoms(PNP_B, H, seed=0)
+
+    def colored_batch(fam, n=H):
+        return np.stack([x4np[r, :n, :n] + noise.synth_colored_noise((n, n), kernels_fam[fam], seed=r)
+                         for r in range(PNP_B)])
+
+    # 1. float64 on the card against the port's CPU run, 4 x 64 x 64 (g1, exact, explicit parameters)
+    zc_s = colored_batch("g1", 64)
+    psd_s = noise.experiment_psd(kernels_fam["g1"], (64, 64))
+    col_card = bm3d_core.bm3d_colored_auto(torch.from_numpy(zc_s).to(dev), psd_s, auto_params=False)
+    col_cpu = bm3d_core.bm3d_colored_auto(torch.from_numpy(zc_s), psd_s, auto_params=False, device="cpu")
+    col_f64 = float((col_card.cpu() - col_cpu).abs().max())
+    check(col_f64 < 1e-9, f"bm3d_colored float64 on the card vs the CPU: {col_f64}")
+    p_ = bm3d_core.DEFAULT_PROFILE
+    stds_s = bm3d_core.psd_to_coeff_stds(psd_s, p_.transform_ht)
+    cov_s = bm3d_core.coeff_cov_field(psd_s, p_.transform_ht)
+    ms_s = float(np.sqrt(psd_s.mean() / 64**2))
+    col_pilots = {d_: bm3d_core.ht_stage_colored(torch.from_numpy(zc_s).to(d_), stds_s, ms_s, cov_field=cov_s)
+                  for d_ in (dev, torch.device("cpu"))}
+    for stage, src, k in (("ht", lambda d_: torch.from_numpy(zc_s).to(d_), p_.max_3d_ht),
+                          ("wiener", lambda d_: col_pilots[d_], p_.max_3d_wie)):
+        got, want = matches(src(dev), k, taus[stage]), matches(src(torch.device("cpu")), k, taus[stage])
+        check(all(torch.equal(a_.cpu(), b_) for a_, b_ in zip(got, want)),
+              f"bm3d_colored float64: the {stage} stage's matches differ between the card and the CPU")
+    # 2.-4. the colored runs at 4 x 256 x 256, float32, the classical kernels' counts at 0
+    zc = {f: torch.from_numpy(colored_batch(f).astype(np.float32)).to(dev) for f in COLORED_FAMILIES}
+    col_ms = {}
+
+    def timed_c(name, fn):
+        res, col_ms[name] = event_ms(fn)
+        return res
+
+    col_out = {f: timed_c(f"exact_{f}", lambda f=f: bm3d_core.bm3d_colored_auto(zc[f], psds[f], auto_params=False))
+               for f in COLORED_FAMILIES}
+    col_out["g1_approx"] = timed_c("approx_g1", lambda: bm3d_core.bm3d_colored(zc["g1"], psds["g1"], exact=False))
+    check(torch.equal(bm3d_core.bm3d_colored_auto(zc["g1"], psds["g1"], auto_params=False), col_out["g1"]),
+          "bm3d_colored: two calls at 4 x 256 x 256 differ")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        col_tf32 = bm3d_core.bm3d_colored_auto(zc["g1"], psds["g1"], auto_params=False)
+        check(torch.backends.cuda.matmul.allow_tf32, "bm3d_colored did not give the caller's TF32 setting back")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(torch.equal(col_tf32, col_out["g1"]), "bm3d_colored: TF32 on in the process changed the output")
+    x4c = torch.from_numpy(x4np).to(dev)
+
+    def psnr0(a):
+        return float(metrics.psnr(a[0].clamp(0.0, 1.0) * 255.0, x4c[0] * 255.0))
+
+    cq = {f"noisy_{f}": psnr0(zc[f]) for f in COLORED_FAMILIES}
+    cq.update({f"exact_{f}": psnr0(col_out[f]) for f in COLORED_FAMILIES})
+    cq["approx_g1"] = psnr0(col_out["g1_approx"])
+    for k, v in cq.items():
+        check(abs(v - JAX_COLORED_PSNR[k]) < RESTORE_DB, f"bm3d_colored {k}: image 0 at {v} dB vs the JAX "
+              f"package's {JAX_COLORED_PSNR[k]} (+- {RESTORE_DB} dB)")
+    for k_, out in col_out.items():
+        check(tuple(out.shape) == (PNP_B, H, W) and bool(torch.isfinite(out).all()), f"bm3d_colored {k_}: bad output")
+    # 5. the API routes, single runs on the phantoms with white noise
+    sig_w = 0.1
+    zw = torch.from_numpy((x4np + sig_w * np.random.default_rng(9).standard_normal(x4np.shape))
+                          .astype(np.float32)).to(dev)
+    rgb = torch.from_numpy(np.stack([x4np[c] for c in range(3)], axis=-1)
+                           + sig_w * np.random.default_rng(10).standard_normal((H, W, 3))).float().to(dev)
+    psf = experiments.make_blur_kernel("aniso")
+    zb = (sisr.wrap_convolve(x4c, torch.as_tensor(psf, dtype=torch.float32, device=dev))
+          + 0.01 * torch.from_numpy(np.random.default_rng(11).standard_normal((PNP_B, H, W))).float().to(dev))
+    pilot_w = bm3d_core.ht_stage(zw, sig_w)
+    y_bm, bm_ht, bm_wie = bm3d_api.bm3d_with_blockmatches(zw, sig_w)
+    routes = {
+        "bm3d_flat_psd": timed_c("api_bm3d_flat_psd",
+                                 lambda: bm3d_api.bm3d(zw, noise.white_noise_psd((H, W), sig_w**2))),
+        "bm3d_stage_arg": bm3d_api.bm3d(zw, sig_w, stage_arg=pilot_w),
+        "bm3d_with_blockmatches": y_bm,
+        "bm3d_with_blockmatches_reused": timed_c("api_blockmatches_reused", lambda: bm3d_api.bm3d_with_blockmatches(
+            zw, sig_w, bm_ht=bm_ht, bm_wie=bm_wie)[0]),
+        "bm3d_refilter": timed_c("api_refilter", lambda: bm3d_api.bm3d_refilter(zw, sig_w)),
+        "bm3d_deblurring": bm3d_api.bm3d_deblurring(zb, 0.01, psf, colored=False),
+    }
+    check(torch.equal(routes["bm3d_with_blockmatches_reused"], y_bm), "bm3d_with_blockmatches: reuse changed the output")
+    check(torch.equal(routes["bm3d_flat_psd"], bm3d_core.bm3d(zw, sig_w)), "api.bm3d: a flat PSD is not the white path")
+    rgb_out = {"bm3d_rgb": bm3d_api.bm3d_rgb(rgb, sig_w), "bm3d_multichannel": bm3d_api.bm3d_multichannel(rgb, sig_w)}
+    torch.cuda.synchronize()
+    col_launches = {"l1_tail": tail_kernels.l1_tail.launches, "cnc_tail": tail_kernels.cnc_tail.launches,
+                    "fused_iteration": fused_dc.fused_iteration.launches}
+    check(col_launches == dict.fromkeys(col_launches, 0), f"the colored BM3D paths launched a classical kernel: "
+          f"{col_launches}")
+    rgb_truth = rgb.new_tensor(np.stack([x4np[c] for c in range(3)], axis=-1))
+    api_q = {}
+    for k, out in routes.items():
+        ref_in = zb if k == "bm3d_deblurring" else zw
+        check(out.shape == ref_in.shape and bool(torch.isfinite(out).all()), f"{k}: bad output")
+        api_q[k] = float(metrics.psnr(out.clamp(0, 1) * 255.0, x4c * 255.0).mean())
+    api_q["noisy"] = float(metrics.psnr(zw.clamp(0, 1) * 255.0, x4c * 255.0).mean())
+    api_q["blurred"] = float(metrics.psnr(zb.clamp(0, 1) * 255.0, x4c * 255.0).mean())
+    for k, out in rgb_out.items():
+        check(out.shape == rgb.shape and bool(torch.isfinite(out).all()), f"{k}: bad output")
+        api_q[k] = float(metrics.psnr(out.movedim(-1, 0).clamp(0, 1) * 255.0, rgb_truth.movedim(-1, 0) * 255.0).mean())
+    api_q["noisy_rgb"] = float(metrics.psnr(rgb.movedim(-1, 0).clamp(0, 1) * 255.0,
+                                            rgb_truth.movedim(-1, 0) * 255.0).mean())
+    for k in routes:
+        if k != "bm3d_deblurring":
+            check(api_q[k] > api_q["noisy"], f"{k}: mean PSNR {api_q[k]} not above its input's")
+    deb_q = metrics.psnr(routes["bm3d_deblurring"].clamp(0, 1) * 255.0, x4c * 255.0).tolist()
+    check(all(abs(a_ - b_) < RESTORE_DB for a_, b_ in zip(deb_q, JAX_DEBLURRING_WHITE_PSNR)),
+          f"bm3d_deblurring: PSNR {deb_q} vs the JAX package's {JAX_DEBLURRING_WHITE_PSNR}")
+    for k in rgb_out:
+        check(api_q[k] > api_q["noisy_rgb"], f"{k}: mean PSNR {api_q[k]} not above its input's")
+    # 6. a call by stage and its peak memory (g1, exact)
+    zg1, psd_g1 = zc["g1"], np.maximum(psds["g1"], float(np.mean(psds["g1"])) * 1e-3 + 1e-20)
+    t_h = time.perf_counter()
+    stds_ht = bm3d_core.psd_to_coeff_stds(psd_g1, p_.transform_ht)
+    stds_wie = bm3d_core.psd_to_coeff_stds(psd_g1, p_.transform_wie)
+    cov_ht = bm3d_core.coeff_cov_field(psd_g1, p_.transform_ht)
+    cov_wie = bm3d_core.coeff_cov_field(psd_g1, p_.transform_wie)
+    col_ms["host_stds_and_covariance_fields"] = (time.perf_counter() - t_h) * 1e3
+    ms_g1 = float(np.sqrt(psd_g1.mean() / (H * W)))
+    pilot_c = bm3d_core.ht_stage_colored(zg1, stds_ht, ms_g1, cov_field=cov_ht)
+    col_ms["ht_stage_colored_exact"] = cuda_ms(lambda: bm3d_core.ht_stage_colored(zg1, stds_ht, ms_g1,
+                                                                                    cov_field=cov_ht), reps=3)
+    col_ms["wiener_stage_colored_exact"] = cuda_ms(lambda: bm3d_core.wiener_stage_colored(zg1, pilot_c, stds_wie,
+                                                                                            cov_field=cov_wie), reps=3)
+    col_ms["call_exact_g1"] = cuda_ms(lambda: bm3d_core.bm3d_colored_auto(zg1, psds["g1"], auto_params=False), reps=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    bm3d_core.bm3d_colored_auto(zg1, psds["g1"], auto_params=False)
+    torch.cuda.synchronize()
+    col_peak = torch.cuda.max_memory_allocated() - base_mem
+    log(f"bm3d_colored: float64 card vs CPU {col_f64:.3g} (4x64x64, g1, exact; HT and Wiener matches identical); "
+        f"two calls at {PNP_B}x{H}x{W} bit-equal; TF32 on in the process: bit-equal; classical kernel launches "
+        f"{json.dumps(col_launches)}; image 0 PSNR (dB, clipped; the JAX package on the CPU in brackets) "
+        + ", ".join(f"{k} {v:.3f} [{JAX_COLORED_PSNR[k]}]" for k, v in cq.items())
+        + f"; API routes, mean PSNR over the batch (dB): {json.dumps({k: round(v, 3) for k, v in api_q.items()})}"
+        + f"; bm3d_deblurring per image {[round(v, 3) for v in deb_q]} [{JAX_DEBLURRING_WHITE_PSNR}]")
+    log(f"timing bm3d_colored ({PNP_B} x {H} x {W}, float32, profile 'np', explicit parameters, CUDA events, ms; "
+        f"the host's PSD work on its clock): {json.dumps(col_ms)}; peak memory of one exact call above what was "
+        f"allocated {col_peak / 2**20:.1f} MiB")
+    del zc, col_out, col_tf32, routes, rgb_out, pilot_c, col_pilots, col_card
+    phase("bm3d_colored", t)
 
     # -- timing ----------------------------------------------------------------
     t = time.perf_counter()

@@ -7,7 +7,11 @@ entry points run on the CUDA card unless the caller passes
 run as hand-written CUDA kernels (``csrc/admm_tail.cu``,
 ``csrc/admm_iteration.cu``, ``csrc/admm_iteration_cluster.cu``, built
 with nvcc at first use). The PnP solvers take the CNN denoisers of
-``priors/denoiser.py``, whose convolutions run in cuDNN without TF32.
+``priors/denoiser.py``, whose convolutions run in cuDNN without TF32, or
+BM3D (``priors/bm3d/``: white and colored noise, and its API). The DPIR
+restoration pipelines (``cli/experiments.py``: PnP deblurring and
+super-resolution) run on the SR operators of ``ops/sisr.py`` and
+``ops/resize.py``.
 """
 
 from pnp_admm_cnc_mri_torch.config import (  # noqa: F401

@@ -1,11 +1,13 @@
-"""Solver configuration: a copy of the JAX package's ``config.py:16-282``
-restricted to what the ported solvers use: ADMM (classical and PnP, with the
-CNN and BM3D priors), FISTA and PGD, HQS, RED and single-device consensus."""
+"""Solver configuration: a copy of the JAX package's ``config.py:16-331``
+without its mask names: ADMM (classical and PnP, with the CNN and BM3D
+priors), FISTA and PGD, HQS, RED, single-device consensus, and the DPIR
+restoration pipelines (PnP super-resolution and deblurring,
+``cli/experiments.py``) with their blur kernels and model names."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,3 +191,50 @@ TUNED_CONSENSUS_D_CLEAN: dict = {
     "dncnn_25": dict(iter_num=4, rho=3.0),
     "drunet_gray": dict(iter_num=4, rho=0.8, nlm=8.0),
 }
+
+# DPIR-style restoration pipelines (pnp_sr / pnp_deblur): per-model tuned
+# (iter_num, nlm[, model_sigma1]) swept on set1 by the JAX package. The conditioned models (ffdnet/fdncnn) need a LOW
+# sigma-ladder start on deblurring: the default model_sigma1=49 start
+# over-smooths past what the weak deblur data term can recover
+# (measured 19-20 dB at 49 vs ~32 dB at 10).
+TUNED_SR: dict = {
+    "drunet_gray": dict(iter_num=8, nlm=2.0),             # 35.07
+    "ffdnet_gray": dict(iter_num=8, nlm=8.0),             # 32.08
+    "fdncnn_gray": dict(iter_num=12, nlm=8.0),            # 32.29
+    "ircnn_gray": dict(iter_num=12, nlm=2.0),             # 32.38
+    "dncnn_25": dict(iter_num=8, nlm=8.0),                # 29.91
+}
+TUNED_DEBLUR: dict = {
+    "drunet_gray": dict(iter_num=8, nlm=2.0),             # 35.13
+    "ffdnet_gray": dict(iter_num=8, nlm=8.0, model_sigma1=10.0),  # 32.28
+    "fdncnn_gray": dict(iter_num=12, nlm=8.0, model_sigma1=10.0),  # 32.37
+    "ircnn_gray": dict(iter_num=12, nlm=2.0),             # 32.51
+    "dncnn_25": dict(iter_num=8, nlm=8.0),                # 29.97
+}
+TUNED_SR_CLEAN: dict = {
+    "drunet_gray": dict(iter_num=12, nlm=4.0),            # 32.44
+    "ffdnet_gray": dict(iter_num=8, nlm=8.0),             # 31.91
+    "fdncnn_gray": dict(iter_num=8, nlm=8.0),             # 31.96
+    "ircnn_gray": dict(iter_num=12, nlm=2.0),             # 32.24
+    "dncnn_25": dict(iter_num=8, nlm=8.0),                # 29.24
+}
+TUNED_DEBLUR_CLEAN: dict = {
+    "drunet_gray": dict(iter_num=12, nlm=4.0),            # 32.54
+    "ffdnet_gray": dict(iter_num=8, nlm=8.0, model_sigma1=10.0),  # 31.99
+    "fdncnn_gray": dict(iter_num=8, nlm=8.0, model_sigma1=10.0),  # 32.04
+    "ircnn_gray": dict(iter_num=12, nlm=2.0),             # 32.35
+    "dncnn_25": dict(iter_num=8, nlm=8.0),                # 29.30
+}
+
+# The named blur kernels of the deblurring pipeline
+# (cli/experiments.make_blur_kernel), and the model-zoo names.
+DEBLUR_KERNELS: Tuple[str, ...] = ("aniso", "gauss", "box")
+MODEL_NAMES: Tuple[str, ...] = (
+    "fdncnn_gray",
+    "drunet_gray",
+    "ircnn_gray",
+    "ffdnet_gray",
+    "dncnn_15",
+    "dncnn_25",
+    "dncnn_50",
+)

@@ -1,1 +1,1 @@
-"""Operators of the ADMM solvers: Fourier model, proxes, fused tails and iteration, metrics, schedules."""
+"""Operators: the Fourier model, proxes, fused tails and iteration, metrics, schedules, and the SR/deblurring operators and bicubic resize."""

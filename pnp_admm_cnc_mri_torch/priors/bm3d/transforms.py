@@ -12,6 +12,7 @@ working dtype where they are used):
 - Forward transforms are row-normalized to unit l2 norm, except the 8x8
   bior1.5 matrix, which is the reference's MATLAB-compatible table kept
   unnormalized; inverses are matrix inverses.
+- The per-size stack transforms along the group axis.
 - The 2-D Kaiser aggregation window.
 """
 
@@ -152,6 +153,17 @@ def transform_pair(
     else:
         raise ValueError(kind)
     return t, np.linalg.inv(t)
+
+
+def stack_transforms(max_size: int, kind: str = "haar"):
+    """(forward, inverse) stack transforms for the sizes 1, 2, 4, ..., max, as
+    the reference precomputes them (``_get_transforms``)."""
+    fwd, inv = {}, {}
+    s = 1
+    while s <= max_size:
+        fwd[s], inv[s] = transform_pair(s, kind)
+        s *= 2
+    return fwd, inv
 
 
 def kaiser_window(n: int = 8, beta: float = 2.0) -> np.ndarray:

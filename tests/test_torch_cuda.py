@@ -2,7 +2,9 @@
 plain PyTorch versions, and the denoisers, a PnP-CNC step and the FISTA,
 HQS, RED and consensus solvers in float32 against float64, on the card;
 BM3D and PnP-ADMM with BM3D on the card against the CPU in float64, its
-repeatability and its guard against TF32.
+repeatability and its guard against TF32; the colored-noise BM3D, the BM3D
+API routes and the restoration pipelines on the card against the CPU in
+float64, and the SR operators in float32.
 
 These tests need a CUDA device (the kernels also nvcc), and skip without
 one. The file imports no JAX, so it also runs on a machine without it:
@@ -20,6 +22,9 @@ from pnp_admm_cnc_mri_torch.config import PNP_CNC_BM3D_DEFAULT, PNP_L1_BM3D_DEFA
 from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, prox, tail_kernels
 from pnp_admm_cnc_mri_torch.parallel import consensus
 from pnp_admm_cnc_mri_torch.priors import bm3d_prior, denoiser
+from pnp_admm_cnc_mri_torch.cli import experiments as bm3d_experiments
+from pnp_admm_cnc_mri_torch.data import noise as noise_mod
+from pnp_admm_cnc_mri_torch.priors.bm3d import api as bm3d_api
 from pnp_admm_cnc_mri_torch.priors.bm3d import core as bm3d_core
 from pnp_admm_cnc_mri_torch.solvers import admm, fista, hqs, red
 
@@ -419,3 +424,88 @@ def test_pnp_admm_bm3d_on_the_card_matches_the_cpu(card, scheme):
                        device=dev)[0] for dev in (card, "cpu")}
     for a, b in zip(runs[card], runs["cpu"]):
         assert float((a.cpu() - b).abs().max()) < 1e-9
+
+
+# ---------------------------------------------------------------------------
+# colored-noise BM3D, the BM3D API and the restoration pipelines
+# ---------------------------------------------------------------------------
+
+
+def _colored_images(b, n, fam="g1"):
+    k = noise_mod.get_experiment_kernel(fam, 0.02, (n, n))
+    clean = _bm3d_images(b, n, 12, noise=0.0)
+    return clean + np.stack([noise_mod.synth_colored_noise((n, n), k, seed=r) for r in range(b)]), \
+        noise_mod.experiment_psd(k, (n, n))
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["approx", "exact"])
+def test_bm3d_colored_on_the_card_matches_the_cpu_in_float64(card, exact):
+    z, psd = _colored_images(2, 64)
+    z = torch.from_numpy(z)
+    gpu = bm3d_core.bm3d_colored_auto(z, psd, auto_params=False, exact=exact, device=card)
+    cpu = bm3d_core.bm3d_colored_auto(z, psd, auto_params=False, exact=exact, device="cpu")
+    assert gpu.device.type == "cuda" and gpu.dtype == torch.float64
+    assert float((gpu.cpu() - cpu).abs().max()) < 1e-9
+
+
+def test_bm3d_colored_repeated_calls_are_bit_equal_and_ignore_tf32(card):
+    z, psd = _colored_images(4, 128, "g2")
+    z = torch.from_numpy(z).float().to(card)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        a = bm3d_core.bm3d_colored_auto(z, psd, auto_params=False)
+        b = bm3d_core.bm3d_colored_auto(z, psd, auto_params=False)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        c = bm3d_core.bm3d_colored_auto(z, psd, auto_params=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert bool(torch.isfinite(a).all()) and torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_bm3d_api_routes_on_the_card_match_the_cpu_in_float64(card):
+    z = _bm3d_images(2, 64, 13)
+    rgb = np.stack([_bm3d_images(1, 64, s)[0] for s in (14, 15, 16)], axis=-1)
+    psf = bm3d_experiments.make_blur_kernel("gauss")
+    pilot = bm3d_core.ht_stage(torch.from_numpy(z), 0.1).numpy()
+    calls = {
+        "flat_psd": lambda dev: bm3d_api.bm3d(z, noise_mod.white_noise_psd((64, 64), 0.01), device=dev),
+        "stage_arg": lambda dev: bm3d_api.bm3d(z, 0.1, stage_arg=pilot, device=dev),
+        "refilter": lambda dev: bm3d_api.bm3d_refilter(z, 0.1, device=dev),
+        "rgb": lambda dev: bm3d_api.bm3d_rgb(rgb, 0.1, device=dev),
+        "multichannel": lambda dev: bm3d_api.bm3d_multichannel(rgb, [0.08, 0.1, 0.12], device=dev),
+        "deblurring": lambda dev: bm3d_api.bm3d_deblurring(z, 0.02, psf, colored=False, device=dev),
+    }
+    for name, fn in calls.items():
+        gpu, cpu = fn(card), fn("cpu")
+        assert gpu.device.type == "cuda", name
+        assert float((gpu.cpu() - cpu).abs().max()) < 1e-9, name
+
+
+@pytest.mark.parametrize("kind", ["deblur", "sr"])
+def test_restoration_on_the_card_matches_the_cpu_in_float64(card, kind):
+    x = _bm3d_images(2, 64, 17, noise=0.0)
+    n = 64 if kind == "deblur" else 32
+    nz = np.random.default_rng(18).standard_normal((2, n, n))
+    fn = bm3d_experiments.run_deblur if kind == "deblur" else bm3d_experiments.run_sr
+    runs = {dev: fn(x, model_name="bm3d", iter_num=3, noise=nz, dtype=torch.float64, device=dev)[1]
+            for dev in (card, "cpu")}
+    # cuFFT and the CPU's FFT differ in the last bits, and SR's first rung
+    # (rho ~2e-4) scales its data solution's spectra by 1/rho: the card
+    # measured 1.6e-9 for SR (deblurring: below 1e-12)
+    assert float((runs[card].cpu() - runs["cpu"]).abs().max()) < 1e-8
+
+
+def test_sisr_operators_in_float32_on_the_card(card):
+    """float32 on the card against float64 on the CPU, at a moderate alpha."""
+    from pnp_admm_cnc_mri_torch.ops import sisr
+
+    x = _bm3d_images(2, 64, 19, noise=0.0)
+    k = bm3d_experiments.make_blur_kernel("aniso")
+    for sf in (1, 2):
+        y = sisr.classical_degradation(torch.from_numpy(x), torch.from_numpy(k), sf)
+        outs = []
+        for dev, dt in ((card, torch.float32), ("cpu", torch.float64)):
+            spectra = sisr.pre_calculate(y.to(dev, dt), torch.from_numpy(k).to(dev, dt), sf)
+            outs.append(sisr.data_solution(torch.from_numpy(x).to(dev, dt), *spectra, 0.1, sf))
+        assert float((outs[0].double().cpu() - outs[1]).abs().max()) < 1e-5
