@@ -95,6 +95,33 @@ Phases, each timed and each fatal on failure:
            3-channel stack of phantoms, and ``bm3d_deblurring`` (white; each
            image within 0.1 dB of the JAX package's PSNR); times a call by
            stage, the host's PSD work, and its peak memory;
+- experiments: the MRI experiment runners (``cli/experiments.py``) through
+           the real loaders, on files written to a temporary directory: the
+           512 phantoms as 8-bit PNGs (the port's writer), the three masks
+           as ``Q_*30.mat`` and ``noises.mat``. ``run_classical`` for
+           ``admm_l1`` and ``admm_cnc`` at 512 x 256 x 256 x 50, float32,
+           with K1's and K2's counts set to 0 just before each and read just
+           after (50 launches of its kernel), every image above its
+           zero-filled PSNR and the per-image PSNR equal to a direct
+           ``admm_l1``/``admm_cnc(fused=True)`` solve's; ``run_fista_l1`` at
+           the same shape; ``run_pnp`` (DRUNet in both CNC slots),
+           ``run_pnp_fista``, ``run_pnp_pgd_cnc``, ``run_pnp_hqs`` and
+           ``run_red`` with full-width seeded DRUNet on 4 images (the
+           classical counts stay 0); one small run's ``.log`` and PNGs read
+           back against a direct solve's pixels;
+- sweep:   ``cli/sweep.py``'s ``main`` on the grid of 512 phantoms x 3 masks
+           x sigma scales 1, 3, 5 (4,608 scenarios), ``--algo admm_l1`` and
+           ``--algo admm_cnc``, 50 iterations, float32, with the counts set
+           to 0 just before and read just after (50 launches of K1, of K2);
+           4,608 JSONL rows with the labels in order; 8 scenarios picked by a
+           seed against the port's own CPU solve of them; K1 and K2 against
+           their plain versions at (4608, 256, 256); ``--algo pnp_fista_d``
+           with seeded full-width DRUNet on 4 phantoms x 3 masks (12
+           scenarios, 30 iterations); ADMM-L1 at 512 x 256 x 256 and FISTA-L1
+           at 4 x 256 x 256 stopped at iteration 20, saved, loaded and
+           resumed to 50, bit-equal to the uninterrupted solves; prints the
+           summaries, the split of each sweep's time (host load and grid
+           build, H2D, solve, scoring, records) and the peak device memory;
 - timing:  CUDA-event medians of the solves, of each tail kernel against its
            plain version and its bound, and of the two designs' steps and
            the cuFFT path's iteration on the same state, in turns.
@@ -112,8 +139,10 @@ import json
 import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -324,6 +353,292 @@ def numpy_fista_l1(img, mask, noise, iters, lam, step):
         v = x_new + ((t - 1.0) / t_new) * (x_new - x)
         x, t = x_new, t_new
     return x
+
+
+# experiments and sweep phases: the card against the port's own CPU run on 8
+# scenarios of the 4,608-scenario grid picked by a seed, float32 both (cuFFT
+# against the CPU's FFT over 50 iterations): PSNR within SWEEP_PSNR_DB and the
+# relative residual within SWEEP_RES_ATOL + SWEEP_RES_RTOL |residual|
+SWEEP_PSNR_DB = 1e-3
+SWEEP_RES_ATOL, SWEEP_RES_RTOL = 1e-6, 1e-3
+SIGMAS = (1.0, 3.0, 5.0)
+PNP_RUN_ITERS = 10  # the PnP runners' iterations with seeded DRUNet (quality is not claimed)
+LOG_LINE = r"^\d\d-\d\d-\d\d \d\d:\d\d:\d\d\.\d{3} : (\S+\.png) - PSNR: (\d+\.\d\d) dB; SSIM: (-?\d\.\d{4}) ; RE: (\d\.\d{4})\.$"
+
+
+def write_mri_assets(root: str, imgs, mask_shape) -> tuple:
+    """The testset ``phantoms`` (``imgs`` as 8-bit PNGs through the port's
+    writer), ``phantoms4`` (its first 4), the three masks as ``Q_*30.mat``
+    and ``noises.mat`` (unit-std noise, which ``load_noise`` scales by 3)
+    under ``root``; returns (testsets_dir, data_dir)."""
+    import numpy as np
+    import scipy.io as sio
+
+    from pnp_admm_cnc_mri_torch.data import images, masks, noise
+
+    tdir, ddir = os.path.join(root, "testsets"), os.path.join(root, "CS_MRI")
+    for k, im in enumerate(imgs):
+        images.imsave(im * 255.0, os.path.join(tdir, "phantoms", f"{k:03d}.png"))
+        if k < 4:
+            images.imsave(im * 255.0, os.path.join(tdir, "phantoms4", f"{k:03d}.png"))
+    os.makedirs(ddir)
+    gens = {"Q_Random30": masks.random_mask(mask_shape, fraction=0.3, seed=1),
+            "Q_Radial30": masks.radial_mask(mask_shape),
+            "Q_Cartesian30": masks.cartesian_mask(mask_shape, fraction=0.3, seed=1)}
+    for name, m in gens.items():
+        sio.savemat(os.path.join(ddir, masks.MASK_FILES[name]), {"Q1": m.astype(np.uint8)})
+    sio.savemat(os.path.join(ddir, "noises.mat"), {"noises": noise.synth_noise(mask_shape, std=1.0, seed=2)})
+    return tdir, ddir
+
+
+def phase_experiments(dev, tmp: str, tdir: str, ddir: str) -> dict:
+    """The seven MRI experiment runners through the real loaders; returns their rates."""
+    import re
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pnp_admm_cnc_mri_torch.cli import experiments
+    from pnp_admm_cnc_mri_torch.config import ADMM_CNC_DEFAULT, ADMM_L1_DEFAULT, PNP_CNC_DEFAULTS, ADMMConfig
+    from pnp_admm_cnc_mri_torch.data import images
+    from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, metrics, tail_kernels
+    from pnp_admm_cnc_mri_torch.priors import denoiser
+    from pnp_admm_cnc_mri_torch.solvers import admm
+
+    common = dict(testset="phantoms", testsets_dir=tdir, data_dir=ddir, results_dir=os.path.join(tmp, "results"),
+                  save_images=False, dtype=torch.float32)
+    batch = experiments.prepare_batch(os.path.join(tdir, "phantoms"), "Q_Random30", ddir)
+    n_img = len(batch["names"])
+    check(n_img == B and batch["y"].shape == (B, H, W), f"the testset loaded as {batch['y'].shape}")
+    truth = torch.as_tensor(batch["truth"], device=dev).float()
+    y_b = torch.as_tensor(batch["y"].astype(np.complex64), device=dev)
+    m_b = torch.as_tensor(batch["mask"].astype(np.float32), device=dev)
+    zf = metrics.psnr(torch.abs(fourier.zero_fill(y_b)) * 255.0, truth).cpu().numpy()
+    out, launches = {}, {}
+    for algo in ("admm_l1", "admm_cnc"):
+        torch.cuda.synchronize()
+        tail_kernels.reset_launches()
+        out[algo] = experiments.run_classical(algo, **common)
+        torch.cuda.synchronize()
+        launches[algo] = {"l1_tail": tail_kernels.l1_tail.launches, "cnc_tail": tail_kernels.cnc_tail.launches}
+        want = {"l1_tail": ITERS, "cnc_tail": 0} if algo == "admm_l1" else {"l1_tail": 0, "cnc_tail": ITERS}
+        check(launches[algo] == want, f"run_classical({algo}) launches {launches[algo]}, expected {want}")
+        p = np.array([out[algo]["per_image_psnr"][n] for n in batch["names"]])
+        check(out[algo]["images"] == B and bool(np.all(p > zf)),
+              f"run_classical({algo}): {int(np.sum(p <= zf))} images not above their zero-filled PSNR")
+        cfg = ADMM_L1_DEFAULT if algo == "admm_l1" else ADMM_CNC_DEFAULT
+        x_direct = getattr(admm, algo)(y_b, m_b, cfg, fused=True)[0].x
+        direct = metrics.psnr(x_direct * 255.0, truth).cpu().numpy()
+        d = float(np.abs(p - direct).max())
+        check(d < 1e-9, f"run_classical({algo}) per-image PSNR vs a direct fused solve: {d} dB")
+        out[algo]["psnr_vs_direct_db"] = d
+    tail_kernels.reset_launches()
+    fused_dc.reset_launches()
+    out["fista_l1"] = experiments.run_fista_l1(**common)
+    p = np.array([out["fista_l1"]["per_image_psnr"][n] for n in batch["names"]])
+    check(bool(np.all(np.isfinite(p))) and float(p.mean()) > float(zf.mean()),
+          f"run_fista_l1: mean PSNR {p.mean()} vs zero-filled {zf.mean()}")
+    # the PnP runners with full-width DRUNet, seeded whatever model_zoo/ holds, on 4 images
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the seeded random init warns
+        dru = denoiser.build_denoiser("drunet_gray", weights=None, iter_num=PNP_RUN_ITERS, device=dev)
+    alpha, _, lam, rho, b_ = PNP_CNC_DEFAULTS["drunet_gray"]
+    cfg_cnc = ADMMConfig(iter_num=PNP_RUN_ITERS, rho=rho, lam=lam, alpha=alpha, b=b_)
+    four = dict(common, only="000,001,002,003")
+    it = PNP_RUN_ITERS
+    out["pnp_cnc_drunet"] = experiments.run_pnp(dru, cfg_cnc, scheme="cnc", result_tag="pnp_cnc", **four)
+    out["pnp_fista_drunet"] = experiments.run_pnp_fista(dru, it, **four)
+    out["pnp_pgd_cnc_drunet"] = experiments.run_pnp_pgd_cnc(dru, it, **four)
+    out["pnp_hqs_drunet"] = experiments.run_pnp_hqs(dru, it, **four)
+    out["red_drunet"] = experiments.run_red(dru, it, **four)
+    torch.cuda.synchronize()
+    pnp_launches = {"l1_tail": tail_kernels.l1_tail.launches, "cnc_tail": tail_kernels.cnc_tail.launches,
+                    "fused_iteration": fused_dc.fused_iteration.launches}
+    check(pnp_launches == dict.fromkeys(pnp_launches, 0), f"FISTA and the PnP runners launched {pnp_launches}")
+    for k in ("pnp_cnc_drunet", "pnp_fista_drunet", "pnp_pgd_cnc_drunet", "pnp_hqs_drunet", "red_drunet"):
+        check(out[k]["images"] == 4 and all(np.isfinite(v) for v in out[k]["per_image_psnr"].values()),
+              f"{k}: {out[k]}")
+    # one small run's log and PNGs, read back (another mask: a result name's
+    # logger keeps the file it was first given, as in the JAX package)
+    small = dict(common, only="000,001", save_images=True, results_dir=os.path.join(tmp, "small"))
+    r = experiments.run_classical("admm_l1", mask_name="Q_Radial30", **small)
+    result_name = "phantoms_dn_ADMM_L1_Q_Radial30"
+    e_path = os.path.join(tmp, "small", result_name)
+    with open(os.path.join(e_path, result_name + ".log")) as f:
+        lines = f.read().splitlines()
+    check(len(lines) == 3 and lines[2].endswith("Average PSNR:({:.3f})dB, Average ssim : ({:.3f}), Average re : "
+                                                 "({:.3f})".format(r["psnr"], r["ssim"], r["re"])),
+          f"the log: {lines}")
+    b2 = experiments.prepare_batch(os.path.join(tdir, "phantoms"), "Q_Radial30", ddir, only="000,001")
+    x2 = admm.admm_l1(b2["y"].astype(np.complex64), b2["mask"].astype(np.float32), ADMM_L1_DEFAULT)[0].x
+    want_png = np.uint8((x2 * 255.0).cpu().numpy().clip(0, 255).round())
+    for k, (line, name) in enumerate(zip(lines[:2], ("000", "001"))):
+        mt = re.match(LOG_LINE, line)
+        check(mt is not None and mt.group(1) == name + ".png"
+              and mt.group(2) == f"{r['per_image_psnr'][name]:.2f}", f"log line {line!r}")
+        png = images.imread_gray(os.path.join(e_path, f"{name}_{result_name}.png"))
+        check(np.array_equal(png, want_png[k]), f"saved PNG {name} differs from the direct solve's pixels")
+    rates = {k: {"wall_s": v["wall_s"], "images": v["images"], "iters": v["iters"],
+                 "image_iters_per_s": v["images"] * v["iters"] / v["wall_s"], "psnr_db": v["psnr"]}
+             for k, v in out.items()}
+    log(f"experiments: run_classical launches {json.dumps(launches)}; every image above its zero-filled PSNR "
+        f"(mean {float(zf.mean()):.3f} dB); per-image PSNR vs a direct admm_l1/admm_cnc(fused=True) solve "
+        f"{out['admm_l1']['psnr_vs_direct_db']:.3g}, {out['admm_cnc']['psnr_vs_direct_db']:.3g} dB; FISTA and the PnP "
+        f"runners (DRUNet seeded, {PNP_RUN_ITERS} iterations, 4 images) launched {json.dumps(pnp_launches)}; "
+        f"the small run's .log and PNGs read back")
+    log(f"timing experiments (float32, the runners' own wall_s: the solve to its end on the card): "
+        f"{json.dumps(rates)}")
+    return rates
+
+
+def phase_sweep(dev, tmp: str, tdir: str, ddir: str, y, mask) -> dict:
+    """The 4,608-scenario grid (512 phantoms x 3 masks x 3 sigmas) through
+    ``cli/sweep.py``'s entry point for ADMM-L1 and ADMM-CNC, the kernels at
+    its shape, PnP-FISTA at 12 scenarios, and checkpoint resumes."""
+    import contextlib
+    import io
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pnp_admm_cnc_mri_torch.cli import sweep
+    from pnp_admm_cnc_mri_torch.config import ADMM_CNC_DEFAULT, ADMM_L1_DEFAULT, MASK_NAMES, TUNED_FISTA_D
+    from pnp_admm_cnc_mri_torch.data import images, masks, noise
+    from pnp_admm_cnc_mri_torch.ops import fused_dc, metrics, prox, tail_kernels
+    from pnp_admm_cnc_mri_torch.priors import denoiser
+    from pnp_admm_cnc_mri_torch.solvers import admm, fista
+    from pnp_admm_cnc_mri_torch.utils import checkpoint
+
+    images.DEFAULT_TESTSETS = tdir
+    masks.DEFAULT_DATA_DIR = noise.DEFAULT_DATA_DIR = ddir
+    s_total = B * len(MASK_NAMES) * len(SIGMAS)
+    labels = [f"img{i}_{m}_s{s}" for s in SIGMAS for m in MASK_NAMES for i in range(B)]
+    imgs01, truth, _ = images.load_testset(os.path.join(tdir, "phantoms"))
+    mask_np = {n: masks.load_mask(n) for n in MASK_NAMES}
+    base = noise.load_noise()
+    picks = np.sort(np.random.default_rng(11).choice(s_total, 8, replace=False))
+    res = {"launches": {}, "summary": {}, "split_s": {}, "card_vs_cpu": {}}
+
+    def run(argv, timings=None):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(sweep.main(argv, timings=timings) == 0, f"sweep {argv} returned non-zero")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    for algo, cfg in (("admm_l1", ADMM_L1_DEFAULT), ("admm_cnc", ADMM_CNC_DEFAULT)):
+        out = os.path.join(tmp, f"sweep_{algo}.jsonl")
+        split = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        tail_kernels.reset_launches()
+        fused_dc.reset_launches()
+        summ = run(["--algo", algo, "--testset", "phantoms", "--sigmas", ",".join(map(str, SIGMAS)), "--out", out],
+                   timings=split)
+        torch.cuda.synchronize()
+        res["launches"][algo] = {"l1_tail": tail_kernels.l1_tail.launches, "cnc_tail": tail_kernels.cnc_tail.launches,
+                                 "fused_iteration": fused_dc.fused_iteration.launches}
+        res["peak_gib_" + algo] = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        want = dict(l1_tail=ITERS if algo == "admm_l1" else 0, cnc_tail=ITERS if algo == "admm_cnc" else 0,
+                    fused_iteration=0)
+        check(res["launches"][algo] == want, f"sweep {algo}: launches {res['launches'][algo]}, expected {want}")
+        with open(out) as f:
+            rows = [json.loads(ln) for ln in f]
+        check(summ["scenarios"] == len(rows) == s_total and [r_["scenario"] for r_ in rows] == labels,
+              f"sweep {algo}: {summ['scenarios']} scenarios, {len(rows)} rows, labels in order: "
+              f"{[r_['scenario'] for r_ in rows] == labels}")
+        check(summ["iters"] == ITERS and summ["devices"] == 1 and math.isfinite(summ["avg_psnr"])
+              and math.isfinite(summ["converged_fraction"]), f"sweep {algo}: summary {summ}")
+        # the seeded picks, solved by the port on the CPU in float32
+        blocks = [(sc, m) for sc in SIGMAS for m in MASK_NAMES]
+        y8 = np.stack([np.fft.fft2(imgs01[s_ % B]) * mask_np[blocks[s_ // B][1]] + base * blocks[s_ // B][0]
+                       for s_ in picks]).astype(np.complex64)
+        m8 = np.stack([mask_np[blocks[s_ // B][1]] for s_ in picks]).astype(np.float32)
+        solver = getattr(admm, algo)
+        st, r8 = solver(y8, m8, cfg, dtype=torch.float32, collect_residuals=True, device="cpu")
+        rel8 = (r8[-1] / (torch.sqrt(torch.sum(st.x**2, dim=(-2, -1))) + 1e-12)).numpy()
+        p8 = metrics.psnr(st.x * 255.0, torch.from_numpy(truth[picks % B])).numpy()
+        dp = max(abs(rows[s_]["psnr"] - float(p8[k])) for k, s_ in enumerate(picks))
+        dr = max(abs(rows[s_]["residual"] - float(rel8[k])) for k, s_ in enumerate(picks))
+        ok = all(abs(rows[s_]["residual"] - float(rel8[k])) <= SWEEP_RES_ATOL + SWEEP_RES_RTOL * abs(float(rel8[k]))
+                 for k, s_ in enumerate(picks))
+        check(dp < SWEEP_PSNR_DB and ok, f"sweep {algo}: card vs CPU on the picks {picks.tolist()}: PSNR {dp} dB, "
+              f"residual {dr}")
+        res["card_vs_cpu"][algo] = {"psnr_db": dp, "residual": dr,
+                                    "residuals": [float(v) for v in rel8]}
+        res["summary"][algo], res["split_s"][algo] = summ, split
+        del rows
+    # K1 and K2 against their plain versions at the grid's shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    shape = (s_total, H, W)
+    ops = [torch.randn(shape, generator=gen, device=dev) * 10.0 ** (-4.0 * torch.rand(shape, generator=gen, device=dev))
+           for _ in range(3)]
+    c = ADMM_L1_DEFAULT.rho * ADMM_L1_DEFAULT.lam
+    cnc = (ADMM_CNC_DEFAULT.alpha, ADMM_CNC_DEFAULT.rho, ADMM_CNC_DEFAULT.lam, ADMM_CNC_DEFAULT.b)
+    res["kernels_at_grid"] = {
+        "l1_tail": same(tail_kernels.l1_tail(*ops, c), tail_kernels.l1_tail_plain(*ops, c), "l1_tail at the grid"),
+        "cnc_tail": same(tail_kernels.cnc_tail(*ops, *cnc), tail_kernels.cnc_tail_plain(*ops, *cnc),
+                         "cnc_tail at the grid"),
+    }
+    n = s_total * H * W
+    res["kernel_ms_at_grid"] = {
+        "l1_tail": cuda_ms(lambda: tail_kernels.l1_tail(*ops, c), inner=5),
+        "cnc_tail": cuda_ms(lambda: tail_kernels.cnc_tail(*ops, *cnc), inner=5),
+        "l1_tail_bound": 4 * n * 4 / HBM_BYTES_PER_S * 1e3, "cnc_tail_bound": 5 * n * 4 / HBM_BYTES_PER_S * 1e3,
+    }
+    del ops
+    torch.cuda.empty_cache()
+    # PnP-FISTA, DRUNet seeded (no file in an empty model zoo), 4 phantoms x 3 masks x 1 sigma
+    zoo = denoiser.DEFAULT_MODEL_ZOO
+    denoiser.DEFAULT_MODEL_ZOO = os.path.join(tmp, "empty_zoo")
+    tail_kernels.reset_launches()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the seeded random init warns
+            t_p = time.perf_counter()
+            summ = run(["--algo", "pnp_fista_d", "--model", "drunet_gray", "--testset", "phantoms4",
+                        "--out", os.path.join(tmp, "sweep_pnp.jsonl")])
+            res["pnp_fista_d_total_s"] = time.perf_counter() - t_p
+    finally:
+        denoiser.DEFAULT_MODEL_ZOO = zoo
+    check(summ["scenarios"] == 12 and summ["iters"] == TUNED_FISTA_D["drunet_gray"]["iter_num"]
+          and math.isfinite(summ["avg_psnr"]) and tail_kernels.l1_tail.launches == 0
+          and tail_kernels.cnc_tail.launches == 0, f"sweep pnp_fista_d: {summ}")
+    res["summary"]["pnp_fista_d"] = summ
+    # checkpoint resumes on the card: ADMM-L1 at 512 x 256 x 256, FISTA-L1 at 4 x 256 x 256, stopped at 20 of 50
+    cfg = ADMM_L1_DEFAULT
+    full, _ = admm.admm_l1(y, mask, cfg)
+    part, _ = admm.admm_l1(y, mask, dataclasses.replace(cfg, iter_num=20))
+    checkpoint.save_state(os.path.join(tmp, "admm.npz"), part, 20, cfg)
+    z_update, tail = admm.classical_update("admm_l1", cfg)
+    got, _ = checkpoint.resume_admm(os.path.join(tmp, "admm.npz"), y, mask, z_update, tail=tail)
+    check(all(torch.equal(a_, b_) for a_, b_ in zip(got, full)), "ADMM-L1 resumed on the card differs from the "
+          "uninterrupted solve")
+    lam_f = 8e-4
+    y4 = y[:4].contiguous()
+    full_f, _ = fista.fista_l1(y4, mask, iter_num=ITERS, lam=lam_f)
+    part_f, _ = fista.fista_l1(y4, mask, iter_num=20, lam=lam_f)
+    checkpoint.save_fista_state(os.path.join(tmp, "fista.npz"), part_f, 20, meta={"iter_num": ITERS, "step": 1.0})
+    got_f, _ = checkpoint.resume_fista(os.path.join(tmp, "fista.npz"), y4, mask, lambda i, u: prox.soft(u, 1.0 * lam_f))
+    check(torch.equal(got_f.x, full_f.x) and torch.equal(got_f.v, full_f.v) and got_f.t == full_f.t,
+          "FISTA resumed on the card differs from the uninterrupted solve")
+    sp = res["split_s"]["admm_l1"]
+    log(f"sweep: {s_total} scenarios ({B} phantoms x {len(MASK_NAMES)} masks x sigmas {list(SIGMAS)}), {H} x {W}, "
+        f"{ITERS} iterations, float32; the sweep's own kernel launches {json.dumps(res['launches'])}; JSONL rows "
+        f"{s_total} with the labels in order; card vs the port's CPU run on 8 seeded scenarios "
+        f"{json.dumps(res['card_vs_cpu'])} (limits {SWEEP_PSNR_DB} dB, {SWEEP_RES_ATOL} + {SWEEP_RES_RTOL} |r|); "
+        f"K1, K2 equal their plain versions at {shape} ({json.dumps(res['kernels_at_grid'])}); ADMM-L1 (512) and "
+        f"FISTA-L1 (4) stopped at 20, saved, loaded and resumed to {ITERS}: bit-equal to the uninterrupted solves")
+    log(f"timing sweep (summaries as printed: {json.dumps(res['summary'])}); split of each run in s (host load, "
+        f"host grid build, H2D, solve = wall_s, scoring, JSONL records): {json.dumps(res['split_s'])}; admm_l1 solve "
+        f"share of load+grid+h2d+solve+score {sp['solve'] / (sp['load'] + sp['grid'] + sp['h2d'] + sp['solve'] + sp['score']):.1%}; "
+        f"peak device memory above what was allocated: admm_l1 {res['peak_gib_admm_l1']:.2f} GiB, admm_cnc "
+        f"{res['peak_gib_admm_cnc']:.2f} GiB; pnp_fista_d total {res['pnp_fista_d_total_s']:.2f} s; K1/K2 at the grid "
+        f"(CUDA events, ms; byte bounds): {json.dumps(res['kernel_ms_at_grid'])}")
+    return res
 
 
 def main() -> dict:
@@ -1265,6 +1580,20 @@ def main() -> dict:
         f"allocated {col_peak / 2**20:.1f} MiB")
     del zc, col_out, col_tf32, routes, rgb_out, pilot_c, col_pilots, col_card
     phase("bm3d_colored", t)
+
+    # -- experiments and sweep: the MRI workflow from files, in a temporary directory --
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t = time.perf_counter()
+        tdir, ddir = write_mri_assets(tmp, img_np, (H, W))
+        log(f"experiments: wrote {B} PNGs, 3 masks and noises.mat in {time.perf_counter() - t:.2f} s")
+        rates.update({f"run_{k}": v for k, v in phase_experiments(dev, tmp, tdir, ddir).items()})
+        phase("experiments", t)
+        t = time.perf_counter()
+        phase_sweep(dev, tmp, tdir, ddir, y, mask)
+        phase("sweep", t)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # -- timing ----------------------------------------------------------------
     t = time.perf_counter()

@@ -11,7 +11,11 @@ with nvcc at first use). The PnP solvers take the CNN denoisers of
 BM3D (``priors/bm3d/``: white and colored noise, and its API). The DPIR
 restoration pipelines (``cli/experiments.py``: PnP deblurring and
 super-resolution) run on the SR operators of ``ops/sisr.py`` and
-``ops/resize.py``.
+``ops/resize.py``. The MRI experiment runners and the scenario sweep
+(``cli/experiments.py``, ``cli/sweep.py``) load testsets, masks and noise
+from files (``data/images.py``, ``data/masks.py``), score and log in the
+reference's format (``utils/logger.py``), and ``utils/checkpoint.py``
+saves and resumes every solver family.
 """
 
 from pnp_admm_cnc_mri_torch.config import (  # noqa: F401

@@ -1,1 +1,1 @@
-"""Experiment pipelines of the port: the DPIR restoration pipelines (``experiments.py``)."""
+"""Experiment pipelines of the port: the MRI experiment runners and the DPIR restoration pipelines (``experiments.py``) and the scenario sweep (``sweep.py``)."""

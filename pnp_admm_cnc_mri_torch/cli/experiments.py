@@ -1,29 +1,378 @@
-"""The DPIR restoration pipelines: PnP deblurring and PnP super-resolution.
+"""The MRI experiment runners and the DPIR restoration pipelines.
 
-A partial counterpart of the JAX package's ``cli/experiments.py``: the blur
-kernels, the restoration prior and the bodies of ``run_deblur`` and
-``run_sr``, from the ground truth to the restored batch, as functions of
-arrays. Loading a testset, scoring, logging and saving are not here (the
-port has no ``data/images.py`` yet), so both take ``x_true`` and return
-``(degraded, restored)``.
+Port of the JAX package's ``cli/experiments.py``. The MRI runners
+reproduce the reference's entry scripts (``【1】ADMM_L1.py`` ...
+``【6】PNP_ADMM_CNC_D .py``) and the other solver families: each loads a
+testset, a mask and the fixed noise (``prepare_batch``), solves the whole
+testset as one batch on the device, scores it there and logs PSNR, SSIM and
+RE per image and on average in the reference's format, saving the PNGs
+(``score_and_log``). Their signatures are the JAX package's plus
+``device`` (None: the CUDA card; ``'cpu'`` only when asked for); their
+dtype default is ``torch.get_default_dtype()`` for the classical solvers,
+as the JAX package's follows ``jax_enable_x64``, and float32 for PnP.
 
-Each runs DPIR-style HQS (reference ``utils/utils_pnp.py:14-23``): the
-closed-form frequency-domain data solution of ``ops/sisr.py`` alternates
-with a denoiser, both driven by one ``get_rho_sigma`` ladder; the whole
-batch restores at once.
+The restoration half holds the blur kernels, the restoration prior and the
+bodies of ``run_deblur`` and ``run_sr``, from the ground truth to the
+restored batch, as functions of arrays (their noise comes from
+``jax.random`` in the JAX package, which torch cannot replay): both take
+``x_true`` and return ``(degraded, restored)``. Each runs DPIR-style HQS
+(reference ``utils/utils_pnp.py:14-23``): the closed-form frequency-domain
+data solution of ``ops/sisr.py`` alternates with a denoiser, both driven by
+one ``get_rho_sigma`` ladder; the whole batch restores at once.
 """
 
 from __future__ import annotations
 
+import os
+import time
 import warnings
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from pnp_admm_cnc_mri_torch.config import DEBLUR_KERNELS
+from pnp_admm_cnc_mri_torch.config import ADMM_CNC_DEFAULT, ADMM_L1_DEFAULT, DEBLUR_KERNELS, ADMMConfig
+from pnp_admm_cnc_mri_torch.data import images, masks, noise
+from pnp_admm_cnc_mri_torch.ops import metrics as metrics_mod
 from pnp_admm_cnc_mri_torch.ops import schedules, sisr
 from pnp_admm_cnc_mri_torch.solvers.admm import resolve_device
+from pnp_admm_cnc_mri_torch.utils import logger as logger_mod
+
+
+def prepare_batch(
+    testset_dir: str,
+    mask_name: str = "Q_Random30",
+    data_dir: Optional[str] = None,
+    use_clip: bool = True,
+    only: Optional[str] = None,
+):
+    """Load a testset, a mask and the noise and form the observations (host
+    numpy). Returns a dict: imgs01 (B, H, W) float64, truth (B, H, W)
+    float64 on the 0-255 scale, y (B, H, W) complex128, mask (H, W), names.
+
+    ``only`` (comma-separated image stems, e.g. ``"05,11"``) keeps those
+    images, in testset order, and reads no other; each keeps its
+    observation of the full-set batch (same mask, same fixed noise, the
+    same per-image FFT), so its PSNR equals its slot of the full run's.
+    """
+    paths = images.get_image_paths(testset_dir)
+    if not paths:
+        raise FileNotFoundError(f"no images under {testset_dir}")
+    if only:
+        stems = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+        paths = [paths[i] for i in _filter_only(stems, only)]
+    imgs01, truth, names = images.load_files(paths, use_clip=use_clip)
+    mask = masks.load_mask(mask_name, data_dir)
+    kn = noise.load_noise(data_dir)
+    y = np.fft.fft2(imgs01, axes=(-2, -1)) * mask + kn
+    return {"imgs01": imgs01, "truth": truth, "y": y, "mask": mask, "names": names}
+
+
+def _filter_only(names, only: str):
+    """Indices of the ``only`` images (comma-separated stems) in ``names``."""
+    want = [w.strip() for w in only.split(",")]
+    missing = [w for w in want if w not in names]
+    if missing:
+        raise ValueError(f"--images {missing} not in testset {sorted(names)}")
+    return [i for i, n in enumerate(names) if n in want]
+
+
+def score_and_log(
+    x,
+    truth,
+    names,
+    result_name: str,
+    results_dir: str = "results",
+    save_images: bool = True,
+    round_uint8: bool = False,
+    log=None,
+) -> Dict[str, float]:
+    """Per-image and average PSNR/SSIM/RE in the reference's log format.
+
+    ``x``: the [0, 1] reconstructions (B, H, W), a tensor (scored on its
+    device, in its dtype) or a numpy array. ``round_uint8`` mirrors
+    ``【6】:315``, which rounds to uint8 before scoring (the other scripts
+    score the float ``x * 255``).
+    """
+    e_path = os.path.join(results_dir, result_name)
+    if log is None:
+        log = logger_mod.logger_info(result_name, os.path.join(e_path, result_name + ".log"))
+    x = torch.as_tensor(x)
+    img_e = x * 255.0
+    if round_uint8:
+        img_e = torch.round(img_e).clamp(0, 255).to(torch.uint8).to(x.dtype)
+    truth_t = torch.as_tensor(np.asarray(truth), device=x.device).to(x.dtype)
+    psnr = metrics_mod.psnr(img_e, truth_t).cpu().numpy()
+    ssim = metrics_mod.ssim(img_e, truth_t).cpu().numpy()
+    re = metrics_mod.relative_error(img_e, truth_t).cpu().numpy()
+    img_host = img_e.cpu().numpy() if save_images else None
+    for i, name in enumerate(names):
+        log.info(
+            "{:s} - PSNR: {:.2f} dB; SSIM: {:.4f} ; RE: {:.4f}.".format(
+                name + ".png", psnr[i], ssim[i], re[i]
+            )
+        )
+        if save_images:
+            images.imsave(img_host[i], os.path.join(e_path, f"{name}_{result_name}.png"))
+    avg = {
+        "psnr": float(psnr.mean()),
+        "ssim": float(ssim.mean()),
+        "re": float(re.mean()),
+        "per_image_psnr": {n: float(p) for n, p in zip(names, psnr)},
+    }
+    log.info(
+        "------> Average PSNR:({:.3f})dB, Average ssim : ({:.3f}), Average re : ({:.3f})".format(
+            avg["psnr"], avg["ssim"], avg["re"]
+        )
+    )
+    return avg
+
+
+# the host types of y and the mask for each working dtype: cast on the host, as the JAX package casts
+_HOST_TYPES = {torch.float32: (np.float32, np.complex64), torch.float64: (np.float64, np.complex128)}
+
+
+def _drive(solve: Callable, testset: str, mask_name: str, testsets_dir, data_dir, results_dir: str,
+           save_images: bool, only, dtype, device, result_name: str, iters: int,
+           round_uint8: bool = False) -> Dict[str, float]:
+    """The common body of the MRI runners: load and observe on the host,
+    move y and the mask to the device in ``dtype``, time ``solve(y, mask) ->
+    x`` to its end on the device, score and log."""
+    device = resolve_device(device)
+    batch = prepare_batch(os.path.join(testsets_dir or images.DEFAULT_TESTSETS, testset), mask_name, data_dir,
+                          only=only)
+    real, cplx = _HOST_TYPES[dtype]
+    y = torch.as_tensor(batch["y"].astype(cplx), device=device)
+    mask = torch.as_tensor(np.asarray(batch["mask"]).astype(real), device=device)
+    t0 = time.perf_counter()
+    x = solve(y, mask)
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    dt = time.perf_counter() - t0
+    avg = score_and_log(x, batch["truth"], batch["names"], f"{testset}_dn_{result_name}_{mask_name}", results_dir,
+                        save_images, round_uint8)
+    avg.update(wall_s=dt, images=len(batch["names"]), iters=iters)
+    return avg
+
+
+def run_classical(
+    algo: str = "admm_l1",
+    testset: str = "set1",
+    mask_name: str = "Q_Random30",
+    cfg: Optional[ADMMConfig] = None,
+    testsets_dir: Optional[str] = None,
+    data_dir: Optional[str] = None,
+    results_dir: str = "results",
+    save_images: bool = True,
+    only: Optional[str] = None,
+    dtype=None,
+    device=None,
+) -> Dict[str, float]:
+    """ADMM-L1 or ADMM-CNC over a testset, batched (reference 【1】/【4】).
+    The port's solvers run their z/w tails as the CUDA kernels of
+    ``ops/tail_kernels.py`` on the card (``fused=True``)."""
+    from pnp_admm_cnc_mri_torch.solvers import admm
+
+    if cfg is None:
+        cfg = ADMM_L1_DEFAULT if algo == "admm_l1" else ADMM_CNC_DEFAULT
+    solver = {"admm_l1": admm.admm_l1, "admm_cnc": admm.admm_cnc}[algo]
+    dtype = dtype or torch.get_default_dtype()
+    return _drive(lambda y, m: solver(y, m, cfg, dtype=dtype, device=y.device)[0].x, testset, mask_name,
+                  testsets_dir, data_dir, results_dir, save_images, only, dtype, device, algo.upper(), cfg.iter_num)
+
+
+def run_pnp(
+    denoise: Callable,
+    cfg: ADMMConfig,
+    scheme: str = "l1",
+    testset: str = "set1",
+    mask_name: str = "Q_Random30",
+    denoise2: Optional[Callable] = None,
+    clamp: bool = True,
+    testsets_dir: Optional[str] = None,
+    data_dir: Optional[str] = None,
+    results_dir: str = "results",
+    save_images: bool = True,
+    only: Optional[str] = None,
+    round_uint8: bool = False,
+    result_tag: str = "pnp",
+    dtype=None,
+    device=None,
+) -> Dict[str, float]:
+    """A PnP-ADMM variant with a denoiser callable (refs 【2】/【3】/【5】/【6】):
+    ``scheme='l1'`` is ``pnp_admm_l1``, any other ``pnp_admm_cnc`` with
+    ``denoise`` and ``denoise2`` in its two slots."""
+    from pnp_admm_cnc_mri_torch.solvers import admm
+
+    dtype = dtype or torch.float32
+
+    def solve(y, m):
+        if scheme == "l1":
+            return admm.pnp_admm_l1(y, m, cfg, denoise, clamp=clamp, dtype=dtype, device=y.device)[0].x
+        return admm.pnp_admm_cnc(y, m, cfg, denoise, denoise2, clamp=clamp, dtype=dtype, device=y.device)[0].x
+
+    return _drive(solve, testset, mask_name, testsets_dir, data_dir, results_dir, save_images, only, dtype, device,
+                  result_tag, cfg.iter_num, round_uint8)
+
+
+def run_fista_l1(
+    testset: str = "set1",
+    mask_name: str = "Q_Random30",
+    iter_num: int = 50,
+    lam: float = 1e-4,
+    step: float = 1.0,
+    testsets_dir: Optional[str] = None,
+    data_dir: Optional[str] = None,
+    results_dir: str = "results",
+    save_images: bool = True,
+    only: Optional[str] = None,
+    dtype=None,
+    momentum: bool = True,
+    result_tag: Optional[str] = None,
+    device=None,
+) -> Dict[str, float]:
+    """FISTA-L1 (or, with ``momentum=False``, the reference's deleted PGD-L1
+    pipeline) over a testset (``solvers/fista.py``)."""
+    from pnp_admm_cnc_mri_torch.solvers import fista
+
+    dtype = dtype or torch.get_default_dtype()
+
+    def solve(y, m):
+        return fista.fista_l1(y, m, iter_num=iter_num, lam=lam, step=step, momentum=momentum, dtype=dtype,
+                              device=y.device)[0].x
+
+    return _drive(solve, testset, mask_name, testsets_dir, data_dir, results_dir, save_images, only, dtype, device,
+                  result_tag or ("FISTA_L1" if momentum else "PGD_L1"), iter_num)
+
+
+def run_pnp_fista(
+    denoise: Callable,
+    iter_num: int,
+    step: float = 1.0,
+    clamp: bool = True,
+    testset: str = "set1",
+    mask_name: str = "Q_Random30",
+    testsets_dir: Optional[str] = None,
+    data_dir: Optional[str] = None,
+    results_dir: str = "results",
+    save_images: bool = True,
+    only: Optional[str] = None,
+    result_tag: str = "pnp_fista",
+    dtype=None,
+    momentum: bool = True,
+    device=None,
+) -> Dict[str, float]:
+    """PnP-FISTA (``solvers/fista.pnp_fista``) over a testset;
+    ``momentum=False`` is the reference's deleted PNP-PGD pipeline."""
+    from pnp_admm_cnc_mri_torch.solvers import fista
+
+    dtype = dtype or torch.float32
+
+    def solve(y, m):
+        return fista.pnp_fista(y, m, iter_num, denoise, step=step, clamp=clamp, dtype=dtype, momentum=momentum,
+                               device=y.device)[0].x
+
+    return _drive(solve, testset, mask_name, testsets_dir, data_dir, results_dir, save_images, only, dtype, device,
+                  result_tag, iter_num)
+
+
+def run_pnp_pgd_cnc(
+    denoise: Callable,
+    iter_num: int,
+    denoise2: Optional[Callable] = None,
+    alpha: float = 1.2,
+    lam: float = 0.02,
+    b: float = 36.0,
+    step: float = 1.0,
+    clamp: bool = True,
+    testset: str = "set1",
+    mask_name: str = "Q_Random30",
+    testsets_dir: Optional[str] = None,
+    data_dir: Optional[str] = None,
+    results_dir: str = "results",
+    save_images: bool = True,
+    only: Optional[str] = None,
+    result_tag: str = "pnp_pgd_cnc",
+    dtype=None,
+    device=None,
+) -> Dict[str, float]:
+    """PGD with the CNC double-denoiser prox (``solvers/fista.pnp_pgd_cnc``),
+    the reference's deleted PNP_PGD_CNC_* pipelines."""
+    from pnp_admm_cnc_mri_torch.solvers import fista
+
+    dtype = dtype or torch.float32
+
+    def solve(y, m):
+        return fista.pnp_pgd_cnc(y, m, iter_num, denoise, denoise2=denoise2, alpha=alpha, lam=lam, b=b, step=step,
+                                 clamp=clamp, dtype=dtype, device=y.device)[0].x
+
+    return _drive(solve, testset, mask_name, testsets_dir, data_dir, results_dir, save_images, only, dtype, device,
+                  result_tag, iter_num)
+
+
+def run_pnp_hqs(
+    denoise: Callable,
+    iter_num: int,
+    sigma255: float = 10.0,
+    model_sigma1: float = 49.0,
+    model_sigma2: float = 15.0,
+    clamp: bool = True,
+    testset: str = "set1",
+    mask_name: str = "Q_Random30",
+    testsets_dir: Optional[str] = None,
+    data_dir: Optional[str] = None,
+    results_dir: str = "results",
+    save_images: bool = True,
+    only: Optional[str] = None,
+    result_tag: str = "pnp_hqs",
+    dtype=None,
+    device=None,
+) -> Dict[str, float]:
+    """PnP-HQS (``solvers/hqs.pnp_hqs``) over a testset. The ladder
+    ``(iter_num, model_sigma1, model_sigma2)`` must match the denoiser's
+    (``TUNED_HQS_D`` keeps them coupled)."""
+    from pnp_admm_cnc_mri_torch.solvers import hqs
+
+    dtype = dtype or torch.float32
+
+    def solve(y, m):
+        return hqs.pnp_hqs(y, m, iter_num, denoise, sigma255=sigma255, model_sigma1=model_sigma1,
+                           model_sigma2=model_sigma2, clamp=clamp, dtype=dtype, device=y.device)[0]
+
+    return _drive(solve, testset, mask_name, testsets_dir, data_dir, results_dir, save_images, only, dtype, device,
+                  result_tag, iter_num)
+
+
+def run_red(
+    denoise: Callable,
+    iter_num: int,
+    lam: float = 0.2,
+    step: float = 1.0,
+    variant: str = "fp",
+    clamp: bool = True,
+    testset: str = "set1",
+    mask_name: str = "Q_Random30",
+    testsets_dir: Optional[str] = None,
+    data_dir: Optional[str] = None,
+    results_dir: str = "results",
+    save_images: bool = True,
+    only: Optional[str] = None,
+    result_tag: str = "red",
+    dtype=None,
+    device=None,
+) -> Dict[str, float]:
+    """RED, regularization by denoising (``solvers/red.run_red``), over a
+    testset."""
+    from pnp_admm_cnc_mri_torch.solvers import red
+
+    dtype = dtype or torch.float32
+
+    def solve(y, m):
+        return red.run_red(y, m, iter_num, denoise, lam=lam, step=step, variant=variant, clamp=clamp, dtype=dtype,
+                           device=y.device)[0]
+
+    return _drive(solve, testset, mask_name, testsets_dir, data_dir, results_dir, save_images, only, dtype, device,
+                  result_tag, iter_num)
 
 
 def make_blur_kernel(kernel: str = "aniso") -> np.ndarray:

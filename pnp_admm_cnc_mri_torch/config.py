@@ -1,5 +1,5 @@
-"""Solver configuration: a copy of the JAX package's ``config.py:16-331``
-without its mask names: ADMM (classical and PnP, with the CNN and BM3D
+"""Solver configuration: a copy of the JAX package's ``config.py:16-331``:
+ADMM (classical and PnP, with the CNN and BM3D
 priors), FISTA and PGD, HQS, RED, single-device consensus, and the DPIR
 restoration pipelines (PnP super-resolution and deblurring,
 ``cli/experiments.py``) with their blur kernels and model names."""
@@ -225,6 +225,10 @@ TUNED_DEBLUR_CLEAN: dict = {
     "ircnn_gray": dict(iter_num=12, nlm=2.0),             # 32.35
     "dncnn_25": dict(iter_num=8, nlm=8.0),                # 29.30
 }
+
+# The reference's three sampling masks (data/masks.MASK_FILES), in the order
+# of the scenario sweep's grid (cli/sweep.py --masks all).
+MASK_NAMES: Tuple[str, ...] = ("Q_Random30", "Q_Radial30", "Q_Cartesian30")
 
 # The named blur kernels of the deblurring pipeline
 # (cli/experiments.make_blur_kernel), and the model-zoo names.

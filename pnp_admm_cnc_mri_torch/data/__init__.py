@@ -1,1 +1,1 @@
-"""Synthetic inputs: sampling masks, k-space noise and phantoms (numpy)."""
+"""Inputs (numpy): images and their PNG I/O, sampling masks (generated or loaded from ``.mat``), k-space noise and phantoms."""

@@ -1,10 +1,48 @@
-"""K-space sampling masks (numpy generators; DC at the corner, as the
-unshifted FFT expects). Copies of the JAX package's ``data/masks.py:56-119``;
-the ``.mat`` loaders are not copied."""
+"""K-space sampling masks: the loaders of the reference's ``.mat`` masks and
+numpy generators (DC at the corner, as the unshifted FFT expects). A copy of
+the JAX package's ``data/masks.py``; scipy is imported lazily, for the
+``.mat`` files only.
+
+The reference ships three fixed 256x256 masks at ~30% sampling
+(``CS_MRI/Q_Random30.mat``, ``Q_Radial30.mat``, ``Q_Cartesian30.mat``, key
+``Q1``, loaded at reference ``【1】ADMM_L1.py:177-182``).
+"""
 
 from __future__ import annotations
 
+import os
+from typing import Dict, Sequence
+
 import numpy as np
+
+from pnp_admm_cnc_mri_torch.data.noise import DEFAULT_DATA_DIR
+
+MASK_FILES = {
+    "Q_Random30": "Q_Random30.mat",
+    "Q_Radial30": "Q_Radial30.mat",
+    "Q_Cartesian30": "Q_Cartesian30.mat",
+}
+
+
+def load_mask(name: str, data_dir: str | None = None) -> np.ndarray:
+    """Load one reference mask as float64 0/1 (reference ``【1】:180-182``)."""
+    import scipy.io as sio
+
+    if name not in MASK_FILES:
+        raise ValueError(
+            f"unknown mask {name!r}; available: {sorted(MASK_FILES)} "
+            "(or generate one with masks.random_mask/cartesian_mask/radial_mask)"
+        )
+    data_dir = data_dir or DEFAULT_DATA_DIR
+    mat = sio.loadmat(os.path.join(data_dir, MASK_FILES[name]))
+    return mat["Q1"].astype(np.float64)
+
+
+def load_all_masks(
+    names: Sequence[str] = ("Q_Random30", "Q_Radial30", "Q_Cartesian30"),
+    data_dir: str | None = None,
+) -> Dict[str, np.ndarray]:
+    return {n: load_mask(n, data_dir) for n in names}
 
 
 def random_mask(

@@ -47,19 +47,23 @@ def consensus_admm_step(z, w, dc, z_prox, i, dtype):
 
 
 def run_consensus(ys, masks, cfg: ADMMConfig, z_prox: Optional[Callable] = None, dtype=torch.float32,
-                  dc_method: str = "auto", return_state: bool = False, device=None):
+                  dc_method: str = "auto", return_state: bool = False, device=None, state=None, start: int = 0):
     """Consensus-ADMM over ``ys``/``masks`` of shape (..., N, H, W) (masks may
     be (N, H, W) and shared by the leading axes), on ``device`` (None: the
     CUDA card). Returns ``(z, x)`` with the per-observation x, or
     ``(z, x, w)`` with ``return_state``. ``z_prox(v, i)`` defaults to the L1
-    soft-threshold at ``cfg.rho * cfg.lam``."""
+    soft-threshold at ``cfg.rho * cfg.lam``. ``state``: ``(z, w)`` on the
+    solve's device after ``start`` iterations, as a checkpoint resumes."""
     ys, masks = prepare_inputs(ys, masks, device)
     if z_prox is None:
         z_prox = lambda v, i: prox.soft(v, cfg.rho * cfg.lam)  # noqa: E731
-    x0 = torch.abs(fourier.zero_fill(ys)).to(dtype)
-    z, w = torch.mean(x0, dim=-3), torch.zeros_like(x0)
+    if state is None:
+        x0 = torch.abs(fourier.zero_fill(ys)).to(dtype)
+        state = torch.mean(x0, dim=-3), torch.zeros_like(x0)
+    z, w = state
+    dtype = z.dtype
     dc = fourier.make_rfft_data_consistency(ys, masks, cfg.rho, method=dc_method)
-    for i in range(cfg.iter_num):
+    for i in range(start, cfg.iter_num):
         z, w = consensus_admm_step(z, w, dc, z_prox, i, dtype)
     x = dc(z[..., None, :, :] - w).to(dtype)
     return (z, x, w) if return_state else (z, x)
@@ -90,20 +94,23 @@ def consensus_fista_setup(ys, masks, precondition: bool):
 
 
 def run_consensus_fista(ys, masks, iter_num: int, prox_fn, step: float = 1.0, dtype=torch.float32,
-                        precondition: bool = True, return_state: bool = False, device=None):
+                        precondition: bool = True, return_state: bool = False, device=None, state=None,
+                        start: int = 0):
     """Multi-observation FISTA: one iterate, one fused gradient over all
     observations. With ``precondition`` the summed k-space residual is
     divided by the per-frequency sampling count, which makes the normal
     operator the orthogonal projection onto the union of the masks
     (Lipschitz 1); without it, by N. ``prox_fn(i, u)`` as in
     ``solvers.fista.run_fista``. Starts from ``mean_n |ifft2(ysz_n)|``.
-    Returns x, or the ``FISTAState`` with ``return_state``."""
+    Returns x, or the ``FISTAState`` with ``return_state``. ``state``: a
+    ``FISTAState`` on the solve's device after ``start`` iterations."""
     ys, masks = prepare_inputs(ys, masks, device)
     m, ysz, cnt = consensus_fista_setup(ys, masks, precondition)
-    x0 = torch.mean(torch.abs(fourier.zero_fill(ysz)), dim=-3).to(dtype)
-    state = fista_mod.FISTAState(x=x0, v=x0, t=fista_mod.host_scalar(1.0, dtype))
-    for i in range(iter_num):
-        state = consensus_fista_iteration(state, i, m, ysz, cnt, prox_fn, step, dtype)
+    if state is None:
+        x0 = torch.mean(torch.abs(fourier.zero_fill(ysz)), dim=-3).to(dtype)
+        state = fista_mod.FISTAState(x=x0, v=x0, t=fista_mod.host_scalar(1.0, dtype))
+    for i in range(start, iter_num):
+        state = consensus_fista_iteration(state, i, m, ysz, cnt, prox_fn, step, state.x.dtype)
     return state if return_state else state.x
 
 
@@ -120,12 +127,13 @@ def consensus_hqs_step(z, i, alpha, S, cnt, denoise, clamp, dtype):
 
 def run_consensus_hqs(ys, masks, iter_num: int, denoise: Callable, sigma255: float = 10.0,
                       model_sigma1: float = 49.0, model_sigma2: float = 15.0, clamp: bool = True,
-                      dtype=torch.float32, alphas=None, device=None):
+                      dtype=torch.float32, alphas=None, device=None, z0=None, start: int = 0):
     """Multi-observation HQS: the joint x-subproblem
     ``argmin_x sum_n ||M_n F x - y_n||^2 + alpha_k ||x - z_k||^2`` solved
     exactly per frequency. ``alphas`` overrides the ``get_rho_sigma`` ladder
     (one per iteration). Starts from ``|ifft2(S / max(cnt, 1))|``; at N = 1
-    this is ``solvers.hqs.pnp_hqs`` on the masked observation."""
+    this is ``solvers.hqs.pnp_hqs`` on the masked observation. ``z0``: the
+    iterate on the solve's device after ``start`` iterations."""
     ys, masks = prepare_inputs(ys, masks, device)
     m = (masks != 0).to(ys.real.dtype)
     cnt = torch.sum(m, dim=-3)
@@ -134,7 +142,7 @@ def run_consensus_hqs(ys, masks, iter_num: int, denoise: Callable, sigma255: flo
         alphas, _ = schedules.get_rho_sigma(sigma=sigma255 / 255.0, iter_num=iter_num, model_sigma1=model_sigma1,
                                             model_sigma2=model_sigma2)
     alphas = host_ladder(alphas, iter_num, dtype)
-    z = torch.abs(fourier.ifft2(S / torch.clamp_min(cnt, 1.0))).to(dtype)
-    for i, alpha in enumerate(alphas):
-        z = consensus_hqs_step(z, i, float(alpha), S, cnt, denoise, clamp, dtype)
+    z = torch.abs(fourier.ifft2(S / torch.clamp_min(cnt, 1.0))).to(dtype) if z0 is None else z0
+    for i in range(start, iter_num):
+        z = consensus_hqs_step(z, i, float(alphas[i]), S, cnt, denoise, clamp, z.dtype)
     return z

@@ -107,19 +107,24 @@ def run_admm(
     tail=None,
     use_rfft: bool = True,
     dc_method: str = "auto",
+    state: Optional[ADMMState] = None,
+    start: int = 0,
 ):
-    """Run ``iter_num`` fixed iterations.
+    """Run iterations ``start .. iter_num - 1``: from the zero-filled start,
+    or from ``state`` (a checkpoint's, in its own dtype) taken after
+    ``start`` iterations, so that a resumed solve is the uninterrupted one.
 
     ``use_rfft`` takes the half-spectrum data-consistency solve;
     ``dc_method`` is ``'fft'`` (``'auto'`` means the same) or ``'matmul'``.
     Returns ``(final_state, residuals)``: residuals is the per-iteration
-    ``||x - z||_F`` of each batch element, shape ``(iter_num, *batch)``, or
-    None unless ``collect_residuals``.
+    ``||x - z||_F`` of each batch element, shape ``(iter_num - start,
+    *batch)``, or None unless ``collect_residuals``.
     """
     dc = _make_dc(y, mask, rho, use_rfft, dc_method)
-    state = init_state(y, dtype)
+    if state is None:
+        state = init_state(y, dtype)
     res = []
-    for i in range(iter_num):
+    for i in range(start, iter_num):
         state = admm_step(state, i, y, mask, rho, z_update, clamp, tail=tail, dc=dc)
         if collect_residuals:
             res.append(reductions.primal_residual_norm(state.x, state.z))
@@ -233,6 +238,30 @@ def _solve(y, mask, cfg: ADMMConfig, z_update, tail, dtype, kw):
     return run_admm(y, mask, cfg.iter_num, cfg.rho, z_update, dtype=dtype, tail=tail, **kw)
 
 
+def classical_update(algo: str, cfg: ADMMConfig, fused: bool = True):
+    """``(z_update, tail)`` of ``admm_l1`` (``algo='admm_l1'``: ``z = soft(x +
+    w, rho * lam)``) or ``admm_cnc`` (the GMC firm threshold); ``tail`` runs
+    the z/w update as the CUDA kernel of ``ops/tail_kernels.py`` when
+    ``fused``, else it is None."""
+    if algo == "admm_l1":
+        thr = cfg.rho * cfg.lam
+
+        def z_update(i, x, z, w):
+            return prox.soft(x + w, thr)
+
+        def tail(i, x, z, w):
+            return tail_kernels.l1_tail(x, z, w, thr)
+    elif algo == "admm_cnc":
+        def z_update(i, x, z, w):
+            return prox.cnc_update(z, x + w, cfg.alpha, cfg.rho, cfg.lam, cfg.b)
+
+        def tail(i, x, z, w):
+            return tail_kernels.cnc_tail(x, z, w, cfg.alpha, cfg.rho, cfg.lam, cfg.b)
+    else:
+        raise ValueError(f"unknown classical solver {algo!r} (want 'admm_l1' or 'admm_cnc')")
+    return z_update, (tail if fused else None)
+
+
 def admm_l1(y, mask, cfg: ADMMConfig, dtype=torch.float32, fused: bool = True,
             device=None, **kw):
     """ADMM-L1 (reference ``ADMM_L1.py``): ``z = soft(x + w, rho * lam)``.
@@ -247,15 +276,7 @@ def admm_l1(y, mask, cfg: ADMMConfig, dtype=torch.float32, fused: bool = True,
     ``use_rfft`` and ``dc_method`` are taken).
     """
     y, mask = prepare_inputs(y, mask, device)
-    thr = cfg.rho * cfg.lam
-
-    def z_update(i, x, z, w):
-        return prox.soft(x + w, thr)
-
-    tail = None
-    if fused:
-        tail = lambda i, x, z, w: tail_kernels.l1_tail(x, z, w, thr)  # noqa: E731
-    return _solve(y, mask, cfg, z_update, tail, dtype, kw)
+    return _solve(y, mask, cfg, *classical_update("admm_l1", cfg, fused), dtype, kw)
 
 
 def admm_cnc(y, mask, cfg: ADMMConfig, dtype=torch.float32, fused: bool = True,
@@ -263,16 +284,7 @@ def admm_cnc(y, mask, cfg: ADMMConfig, dtype=torch.float32, fused: bool = True,
     """ADMM-CNC (reference ``ADMM_CNC .py``): GMC firm-threshold z-update;
     ``fused`` runs ``tail_kernels.cnc_tail``. Arguments as ``admm_l1``."""
     y, mask = prepare_inputs(y, mask, device)
-
-    def z_update(i, x, z, w):
-        return prox.cnc_update(z, x + w, cfg.alpha, cfg.rho, cfg.lam, cfg.b)
-
-    tail = None
-    if fused:
-        tail = lambda i, x, z, w: tail_kernels.cnc_tail(  # noqa: E731
-            x, z, w, cfg.alpha, cfg.rho, cfg.lam, cfg.b
-        )
-    return _solve(y, mask, cfg, z_update, tail, dtype, kw)
+    return _solve(y, mask, cfg, *classical_update("admm_cnc", cfg, fused), dtype, kw)
 
 
 def admm_l1_adaptive(y, mask, cfg: ADMMConfig, gamma: float = 1.2, eta: float = 0.95,

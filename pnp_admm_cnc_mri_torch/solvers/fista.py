@@ -80,23 +80,28 @@ def run_fista(
     penalty_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     prox_takes_prev: bool = False,
     device=None,
+    state: Optional[FISTAState] = None,
+    start: int = 0,
 ):
-    """``iter_num`` FISTA iterations (ISTA/PGD with ``momentum=False``) from
-    the zero-filled magnitude (reference ``【1】ADMM_L1.py:100-105``).
+    """FISTA iterations ``start .. iter_num - 1`` (ISTA/PGD with
+    ``momentum=False``) from the zero-filled magnitude (reference
+    ``【1】ADMM_L1.py:100-105``), or from ``state`` (tensors on the solve's
+    device) taken after ``start`` iterations, as a checkpoint resumes.
 
     ``y`` and ``mask`` go to ``device`` (None: the CUDA card). Returns
     ``(final_state, objectives)``: the data term at each iterate plus
-    ``penalty_fn(x)`` when given, shape ``(iter_num, *batch)``, or None
+    ``penalty_fn(x)`` when given, shape ``(iter_num - start, *batch)``, or None
     unless ``collect_objective``. For ISTA with ``step <= 1`` the full
     objective is non-increasing. ``prox_takes_prev`` calls
     ``prox_fn(i, u, x_prev)``, for operators that linearize around the
     previous iterate (``pnp_pgd_cnc``).
     """
     y, mask = prepare_inputs(y, mask, device)
-    x0 = torch.abs(fourier.zero_fill(y)).to(dtype)
-    state = FISTAState(x=x0, v=x0, t=host_scalar(1.0, dtype))
+    if state is None:
+        x0 = torch.abs(fourier.zero_fill(y)).to(dtype)
+        state = FISTAState(x=x0, v=x0, t=host_scalar(1.0, dtype))
     objs = []
-    for i in range(iter_num):
+    for i in range(start, iter_num):
         g = torch.real(fourier.data_term_gradient(state.v, y, mask)).to(dtype)
         u = state.v - step * g
         x_new = (prox_fn(i, u, state.x) if prox_takes_prev else prox_fn(i, u)).to(dtype)

@@ -35,21 +35,24 @@ def host_ladder(alphas, iter_num: int, dtype) -> np.ndarray:
 
 
 def run_hqs(y, mask, iter_num: int, denoise: Callable, alphas, clamp: bool = True, dtype=torch.float32,
-            collect_residuals: bool = False, device=None):
-    """``iter_num`` HQS iterations from the zero-filled magnitude.
+            collect_residuals: bool = False, device=None, z0=None, start: int = 0):
+    """HQS iterations ``start .. iter_num - 1`` from the zero-filled
+    magnitude, or from ``z0`` (on the solve's device) taken after ``start``
+    iterations, as a checkpoint resumes.
 
     ``alphas``: the per-iteration data-solve weights (DPIR's ``rhos`` of
     ``schedules.get_rho_sigma``; a larger alpha pulls less toward the data).
     ``y`` and ``mask`` go to ``device`` (None: the CUDA card). Returns
     ``(z_final, residuals)``: ``||x - z||_F`` of each batch element at each
-    iteration, shape ``(iter_num, *batch)``, or None unless
+    iteration, shape ``(iter_num - start, *batch)``, or None unless
     ``collect_residuals``.
     """
     y, mask = prepare_inputs(y, mask, device)
     alphas = host_ladder(alphas, iter_num, dtype)
-    z = torch.abs(fourier.zero_fill(y)).to(dtype)
+    z = torch.abs(fourier.zero_fill(y)).to(dtype) if z0 is None else z0
     res = []
-    for i, alpha in enumerate(alphas):
+    for i in range(start, iter_num):
+        alpha = alphas[i]
         rho = type(alpha)(1) / (type(alpha)(2) * alpha)
         x = fourier.data_consistency(z, y, mask, float(rho)).to(z.dtype)
         z_new = denoise(x, i).to(z.dtype)

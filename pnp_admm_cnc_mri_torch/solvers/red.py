@@ -23,22 +23,25 @@ from pnp_admm_cnc_mri_torch.solvers.admm import prepare_inputs
 
 
 def run_red(y, mask, iter_num: int, denoise: Callable, lam: float = 0.2, step: float = 1.0, variant: str = "fp",
-            clamp: bool = True, dtype=torch.float32, collect_residuals: bool = False, device=None):
-    """``iter_num`` RED iterations from the zero-filled magnitude.
+            clamp: bool = True, dtype=torch.float32, collect_residuals: bool = False, device=None, x0=None,
+            start: int = 0):
+    """RED iterations ``start .. iter_num - 1`` from the zero-filled
+    magnitude, or from ``x0`` (on the solve's device) taken after ``start``
+    iterations, as a checkpoint resumes.
 
     ``variant='gd'`` is explicit gradient descent (stable for
     ``step <= 2 / (1 + lam)``); ``'fp'`` the fixed-point form, in which the
     denoised image enters as a convex combination. ``y`` and ``mask`` go to
     ``device`` (None: the CUDA card). Returns ``(x_final, residuals)``:
     ``||x - D(x)||_F`` of each batch element at each iteration, shape
-    ``(iter_num, *batch)``, or None unless ``collect_residuals``.
+    ``(iter_num - start, *batch)``, or None unless ``collect_residuals``.
     """
     if variant not in ("gd", "fp"):
         raise ValueError(f"unknown RED variant {variant!r} (want 'gd' or 'fp')")
     y, mask = prepare_inputs(y, mask, device)
-    x = torch.abs(fourier.zero_fill(y)).to(dtype)
+    x = torch.abs(fourier.zero_fill(y)).to(dtype) if x0 is None else x0
     res = []
-    for i in range(iter_num):
+    for i in range(start, iter_num):
         g = torch.real(fourier.data_term_gradient(x, y, mask)).to(dtype)
         dx = denoise(x, i).to(dtype)
         if variant == "gd":

@@ -269,6 +269,25 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert not bad, bad
 
 
+def test_port_imports_scipy_only_lazily():
+    """scipy is taken inside the functions that need it (the ``.mat``
+    loaders and the colored-noise helpers), never at a module's import."""
+    top = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), path)
+        lazy = {id(n) for f in ast.walk(tree) if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+                for n in ast.walk(f)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            top += [f"{path}:{node.lineno} {m}" for m in mods if m.split(".")[0] == "scipy" and id(node) not in lazy]
+    assert not top, top
+
+
 def test_launch_counters_start_from_reset():
     tail_kernels.l1_tail.launches, tail_kernels.cnc_tail.launches = 3, 4
     tail_kernels.reset_launches()

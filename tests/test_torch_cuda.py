@@ -4,7 +4,9 @@ HQS, RED and consensus solvers in float32 against float64, on the card;
 BM3D and PnP-ADMM with BM3D on the card against the CPU in float64, its
 repeatability and its guard against TF32; the colored-noise BM3D, the BM3D
 API routes and the restoration pipelines on the card against the CPU in
-float64, and the SR operators in float32.
+float64, and the SR operators in float32; a small scenario sweep on the
+card against the CPU, and checkpoint resumes on the card bit-equal to the
+uninterrupted solves.
 
 These tests need a CUDA device (the kernels also nvcc), and skip without
 one. The file imports no JAX, so it also runs on a machine without it:
@@ -509,3 +511,83 @@ def test_sisr_operators_in_float32_on_the_card(card):
             spectra = sisr.pre_calculate(y.to(dev, dt), torch.from_numpy(k).to(dev, dt), sf)
             outs.append(sisr.data_solution(torch.from_numpy(x).to(dev, dt), *spectra, 0.1, sf))
         assert float((outs[0].double().cpu() - outs[1]).abs().max()) < 1e-5
+
+
+def _write_assets(root, n=64, n_images=2):
+    """A testset ``set1`` of PNG phantoms (the port's writer), the three
+    masks as ``Q_*30.mat`` and ``noises.mat`` under ``root``."""
+    import os
+
+    import scipy.io as sio
+
+    from pnp_admm_cnc_mri_torch.data import images, masks, phantom
+
+    tdir, ddir = os.path.join(root, "testsets"), os.path.join(root, "CS_MRI")
+    for k, img in enumerate(phantom.mri_phantoms(n_images, n, seed=3)):
+        images.imsave(img * 255.0, os.path.join(tdir, "set1", f"{k:02d}.png"))
+    os.makedirs(ddir)
+    gens = {"Q_Random30": masks.random_mask((n, n), 0.3, seed=1), "Q_Radial30": masks.radial_mask((n, n), 20),
+            "Q_Cartesian30": masks.cartesian_mask((n, n), 0.3, seed=2)}
+    for name, m in gens.items():
+        sio.savemat(os.path.join(ddir, masks.MASK_FILES[name]), {"Q1": m.astype(np.uint8)})
+    sio.savemat(os.path.join(ddir, "noises.mat"), {"noises": noise_mod.synth_noise((n, n), std=1.0, seed=2)})
+    return tdir, ddir
+
+
+@pytest.mark.parametrize("algo", ["admm_l1", "admm_cnc"])
+def test_sweep_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch, capsys, algo):
+    """A 2-mask x 2-sigma sweep of 2 images: the card (K1 or K2 once an
+    iteration) against the CPU, float32 both."""
+    import json
+
+    from pnp_admm_cnc_mri_torch.cli import sweep
+    from pnp_admm_cnc_mri_torch.data import images, masks
+
+    tdir, ddir = _write_assets(str(tmp_path))
+    monkeypatch.setattr(images, "DEFAULT_TESTSETS", tdir)
+    monkeypatch.setattr(masks, "DEFAULT_DATA_DIR", ddir)
+    monkeypatch.setattr(noise_mod, "DEFAULT_DATA_DIR", ddir)
+    argv = ["--algo", algo, "--testset", "set1", "--masks", "Q_Random30,Q_Radial30", "--sigmas", "1,3",
+            "--iter_num", "20"]
+    rows = {}
+    tail_kernels.reset_launches()
+    for dev, extra in (("card", []), ("cpu", ["--cpu"])):
+        out = str(tmp_path / f"{dev}.jsonl")
+        assert sweep.main(argv + extra + ["--out", out]) == 0
+        capsys.readouterr()
+        with open(out) as f:
+            rows[dev] = [json.loads(ln) for ln in f]
+    launches = getattr(tail_kernels, "l1_tail" if algo == "admm_l1" else "cnc_tail").launches
+    assert launches == 20
+    assert [r["scenario"] for r in rows["card"]] == [r["scenario"] for r in rows["cpu"]] and len(rows["cpu"]) == 8
+    for a, b in zip(rows["card"], rows["cpu"]):
+        # float32 cuFFT against the CPU's FFT, 20 iterations
+        assert abs(a["psnr"] - b["psnr"]) < 1e-3 and abs(a["residual"] - b["residual"]) < 1e-6 + 1e-3 * b["residual"]
+
+
+def test_checkpoint_resume_on_the_card_is_bit_equal(cuda, tmp_path):
+    """ADMM-L1 (K1) and FISTA stopped at iteration 3 of 8, saved, loaded and
+    resumed on the card, against the uninterrupted solve on the card."""
+    import dataclasses
+
+    from pnp_admm_cnc_mri_torch.utils import checkpoint
+
+    img = np.random.default_rng(4).random((3, 64, 64))
+    mask = (np.random.default_rng(5).random((64, 64)) < 0.3).astype(np.float32)
+    y = (np.fft.fft2(img) * mask + noise_mod.synth_noise((64, 64), 1.0, 6)).astype(np.complex64)
+    cfg = ADMMConfig(iter_num=8)
+    full, _ = admm.admm_l1(y, mask, cfg)
+    part, _ = admm.admm_l1(y, mask, dataclasses.replace(cfg, iter_num=3))
+    checkpoint.save_state(str(tmp_path / "a.npz"), part, 3, cfg)
+    z_update, tail = admm.classical_update("admm_l1", cfg)
+    got, _ = checkpoint.resume_admm(str(tmp_path / "a.npz"), y, mask, z_update, tail=tail)
+    assert got.x.is_cuda and all(torch.equal(a, b) for a, b in zip(got, full))
+
+    def soft(i, u):
+        return prox.soft(u, 1e-3)
+
+    full_f, _ = fista.run_fista(y, mask, 8, soft)
+    part_f, _ = fista.run_fista(y, mask, 3, soft)
+    checkpoint.save_fista_state(str(tmp_path / "f.npz"), part_f, 3, meta={"iter_num": 8})
+    got_f, _ = checkpoint.resume_fista(str(tmp_path / "f.npz"), y, mask, soft)
+    assert torch.equal(got_f.x, full_f.x) and torch.equal(got_f.v, full_f.v) and got_f.t == full_f.t

@@ -14,7 +14,19 @@ and 1.0e-5): the first rungs of the ladder give rho ~2e-4, whose 1/rho in
 the data solution cancels spectra ~4,000x the result, and the BM3D
 thresholds then carry a float32 rounding; the JAX package's own float32 SR
 loop is 2.8e-4 (max) from its float64 one, the port's 5.8e-4.
+
+With the trained ``model_zoo/drunet_gray.npz`` (skipped only when the file
+is absent): SR x2 (from 32 x 32) and deblurring of two 64 x 64 scenes, 2
+iterations, nlm 2, against the JAX loop with the JAX package's DRUNet on
+the same file. Float64 within 1e-9 (measured 1.1e-13 SR, 2.7e-15
+deblurring). Float32 against the JAX package's float32 within twice the
+JAX package's own float32-vs-float64 gap on these inputs, which is 6.26e-5
+(SR) and 4.33e-7 (deblurring), so limits 1.25e-4 and 8.7e-7 (the port
+measured 8.85e-5 and 6.56e-7; torch 2 threads).
 """
+
+import os
+
 
 import numpy as np
 import pytest
@@ -27,6 +39,7 @@ from pnp_admm_cnc_mri_tpu.cli import experiments as jexp
 from pnp_admm_cnc_mri_tpu.ops import schedules as jschedules
 from pnp_admm_cnc_mri_tpu.ops import sisr as jsisr
 from pnp_admm_cnc_mri_tpu.priors import bm3d_prior as jbm3d_prior
+from pnp_admm_cnc_mri_tpu.priors import denoiser as jdenoiser
 from pnp_admm_cnc_mri_tpu.priors.bm3d import core as jcore
 from pnp_admm_cnc_mri_torch import config
 from pnp_admm_cnc_mri_torch.cli import experiments
@@ -59,9 +72,10 @@ def truth():
     return np.stack([a, b])
 
 
-def _jax_loop(x_true, noise, kind, dtype, iter_num=ITERS, denoise=None):
+def _jax_loop(x_true, noise, kind, dtype, iter_num=ITERS, denoise=None, nlm=None):
     """The JAX package's run_deblur / run_sr body on given noise, with its
-    BM3D ladder prior (or ``denoise``)."""
+    BM3D ladder prior (or ``denoise``); ``nlm`` ends the ladder as
+    run_deblur / run_sr's ``nlm`` does."""
     jdt = JNP[dtype]
     x = jnp.asarray(x_true, jdt)
     if kind == "deblur":
@@ -74,6 +88,7 @@ def _jax_loop(x_true, noise, kind, dtype, iter_num=ITERS, denoise=None):
         k = jnp.asarray(jsisr.anisotropic_gaussian(ksize=9, theta=0.7, l1=2.5, l2=1.0), jdt)
         y = jsisr.classical_degradation(x, k, sf)
         eff = float(max(sf, s255))
+    eff = eff if nlm is None else float(nlm)
     y = y + (s255 / 255.0) * jnp.asarray(noise, jdt)
     fb, fbc, f2b, fbfy = jsisr.pre_calculate(y, k, sf)
     rhos, sigmas = jschedules.get_rho_sigma(sigma=max(s255, 0.1) / 255.0, iter_num=iter_num, model_sigma1=49.0,
@@ -202,3 +217,33 @@ def test_entry_points_need_the_card_or_the_cpu(truth):
     for fn in (experiments.run_deblur, experiments.run_sr):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn(truth, model_name="bm3d", iter_num=1)
+
+
+TRAINED = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "model_zoo", "drunet_gray.npz")
+# float32 limits: twice the JAX package's own float32-vs-float64 gap (module docstring)
+TRAINED_F32 = {"sr": 2 * 6.26e-5, "deblur": 2 * 4.33e-7}
+
+
+@pytest.mark.skipif(not os.path.exists(TRAINED), reason="model_zoo/drunet_gray.npz is absent")
+@KINDS
+def test_trained_drunet_loop_matches_jax(kind):
+    """The restoration loop with the trained DRUNet, 2 x 64 x 64, 2
+    iterations, nlm 2, in both packages on the same numpy noise."""
+    n = 64
+    yy, xx = np.mgrid[:n, :n]
+    x_true = np.stack([0.5 + 0.3 * np.sin(xx / 6.0) * np.cos(yy / 9.0),
+                       np.where((xx - 24) ** 2 + (yy - 36) ** 2 < 300, 0.8, 0.2)])
+    m = n if kind == "deblur" else n // 2
+    noise = np.random.default_rng(3).standard_normal((2, m, m))
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        jd = jdenoiser.build_denoiser("drunet_gray", weights=TRAINED, iter_num=2, noise_level_model=2.0 / 255.0,
+                                      param_dtype=JNP[dtype])
+        _, jz = _jax_loop(x_true, noise.astype(np.float64 if dtype == torch.float64 else np.float32), kind, dtype,
+                          iter_num=2, denoise=jd, nlm=2.0)
+        _, z = _port(kind, x_true, model_name="drunet_gray", weights=TRAINED, iter_num=2, nlm=2.0, noise=noise,
+                     dtype=dtype)
+        assert z.dtype == dtype and z.shape == x_true.shape
+        out[dtype] = (z.numpy(), jz)
+    np.testing.assert_allclose(*out[torch.float64], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(*out[torch.float32], rtol=0, atol=TRAINED_F32[kind])
