@@ -122,6 +122,21 @@ Phases, each timed and each fatal on failure:
            resumed to 50, bit-equal to the uninterrupted solves; prints the
            summaries, the split of each sweep's time (host load and grid
            build, H2D, solve, scoring, records) and the peak device memory;
+- train:   the denoiser trainers (``train/``, ``cli/train_denoiser.py``),
+           with K1-K3's counts set to 0 at the phase's start and read at its
+           end (they stay 0: no Pallas kernel of the JAX package is on this
+           path). Full-width DRUNet through ``cli.train_denoiser.main`` at the
+           JAX package's round-15 stream config cut to 200 steps (its npz
+           loaded through ``build_denoiser`` into a 4 x 256 x 256 PnP-FISTA
+           solve, finite and in [0, 1]); the step's split, FLOPs, share of
+           the float32 peak and peak memory; DnCNN on host and on-device
+           batches of the phantom PNGs, the IRCNN 25-bin bundle, FFDNet
+           distilled from the DRUNet npz; ``train.unroll.train_unrolled`` with
+           full-width DRUNet through 10 PnP-FISTA iterations at 2 x 256 x 256
+           (4 steps; checkpointed and plain gradients compared); float64 on
+           the card against the CPU (3 DnCNN steps, one unrolled step),
+           float32 against float64 (full-width DRUNet, 2 steps), two 20-step
+           runs from one seed bit-equal, and TF32 set on changing nothing;
 - timing:  CUDA-event medians of the solves, of each tail kernel against its
            plain version and its bound, and of the two designs' steps and
            the cuFFT path's iteration on the same state, in turns.
@@ -638,6 +653,297 @@ def phase_sweep(dev, tmp: str, tdir: str, ddir: str, y, mask) -> dict:
         f"peak device memory above what was allocated: admm_l1 {res['peak_gib_admm_l1']:.2f} GiB, admm_cnc "
         f"{res['peak_gib_admm_cnc']:.2f} GiB; pnp_fista_d total {res['pnp_fista_d_total_s']:.2f} s; K1/K2 at the grid "
         f"(CUDA events, ms; byte bounds): {json.dumps(res['kernel_ms_at_grid'])}")
+    return res
+
+
+# -- train: the denoiser trainers (no kernel of the JAX package is on this path) --
+# The JAX package's round-15 stream config (scripts/train_round15_synth.sh, part B:
+# full-width DRUNet, batch 16, 64^2 patches, sigma in [0, 50]/255, a 4096-image
+# 128^2 buffer, cosine, EMA 0.999), cut: 150,000 -> 200 steps, scan_steps 200 ->
+# 100, synth_refresh 2,000 -> 100 (the refresh runs), ckpt_every 10,000 -> 100,
+# and no warp seeds where no sample image is installed (the warp share goes to the phantoms).
+TRAIN_STEPS, TRAIN_BUFFER = 200, 4096
+TRAIN_ARGV = ["--model", "drunet", "--sigma", "0", "--sigma_max", "50", "--batch", "16", "--patch", "64",
+              "--synth", str(TRAIN_BUFFER), "--synth_size", "128", "--lr_decay", "cosine", "--ema", "0.999",
+              "--steps", str(TRAIN_STEPS), "--scan_steps", "100", "--synth_refresh", "100", "--ckpt_every", "100"]
+TRAIN_F64_ATOL = 1e-9  # float64 on the card against the port's CPU run: parameters after the steps
+# full-width DRUNet, float32 against float64 on the card, 2 Adam steps (lr 1e-4) on one injected
+# batch (16 x 64^2), both read relative to float64's (precision_readings). On three batches
+# (probes/train_probe.py precision; PERF.md): the first step's gradient, its largest difference
+# over its largest entry, 2.29e-5 to 5.60e-5 in float32 and 7.30e-4 to 8.14e-4 with TF32
+# convolutions; the parameters' change over the 2 steps, the norm of its difference over its norm,
+# 8.20e-3 to 1.02e-2 in float32 and 6.79e-2 to 6.95e-2 with TF32. Each limit lies between the two.
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_STEP_RTOL = 2.5e-2
+UNROLL_ITERS, UNROLL_B, UNROLL_HW = 10, 2, 256
+
+
+def _cli_json(argv, timings=None) -> list:
+    """Run the training CLI's ``main(argv, timings)`` in this process; its JSON lines."""
+    import contextlib
+    import io
+
+    from pnp_admm_cnc_mri_torch.cli import train_denoiser
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_denoiser.main(argv, timings)
+    check(rc == 0, f"train_denoiser {argv} returned {rc}")
+    return [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    check(set(a) == set(b), "the two states have other keys")
+    return max(float((a[k].double().cpu() - b[k].double().cpu()).abs().max()) for k in a)
+
+
+def precision_readings(dev, noisy, clean, sig) -> tuple:
+    """Full-width DRUNet (Flax init, seed 0) trained 2 steps on one batch in
+    float32 and in float64 on the card: the norm of the difference of the
+    parameters' change over the norm of float64's change, and the largest
+    difference of the first step's (clipped) gradient over float64's
+    largest entry."""
+    import torch
+
+    from pnp_admm_cnc_mri_torch.models.drunet import UNetRes
+    from pnp_admm_cnc_mri_torch.train import trainer
+
+    change, g1 = {}, {}
+    for dt in (torch.float32, torch.float64):
+        m = trainer.prepare_model(UNetRes(2, 1), None, 0, dt, dev)
+        p0 = trainer.state_of(m)
+        sf = trainer.make_train_step(trainer.make_loss_fn(m, "l2", True),
+                                     trainer.make_optimizer(trainer.TrainConfig(), m.parameters(), 2))
+        sf(noisy.to(dt), clean.to(dt), sig.to(dt))
+        g1[dt] = {k: p.grad.to(torch.float64, copy=True) for k, p in m.named_parameters()}
+        sf(noisy.to(dt), clean.to(dt), sig.to(dt))
+        change[dt] = {k: v.double() - p0[k].double() for k, v in trainer.state_of(m).items()}
+    f32, f64 = change[torch.float32], change[torch.float64]
+    norm = lambda d: math.sqrt(sum(float((v * v).sum()) for v in d.values()))  # noqa: E731
+    step_rel = norm({k: f32[k] - f64[k] for k in f64}) / norm(f64)
+    grad_rel = _max_diff(g1[torch.float32], g1[torch.float64]) / max(
+        float(g.abs().max()) for g in g1[torch.float64].values())
+    return step_rel, grad_rel
+
+
+def _finite_losses(lines, what):
+    losses = [l for d in lines for _, l in d.get("losses", [])]
+    check(bool(losses) and all(math.isfinite(l) for l in losses), f"{what}: losses {losses}")
+    return losses
+
+
+def phase_train(dev, tmp: str, tdir: str) -> dict:
+    """The denoiser trainers on the card: full-width DRUNet on the synthetic
+    stream through the CLI (its npz loaded into a PnP-FISTA solve), DnCNN on
+    host and on-device batches, the IRCNN bundle, FFDNet distillation, the
+    unrolled trainer, and the held numbers (float64 card vs CPU, float32 vs
+    float64, two runs bit-equal, TF32 set on changing nothing)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from pnp_admm_cnc_mri_torch.data import masks
+    from pnp_admm_cnc_mri_torch.models import describe
+    from pnp_admm_cnc_mri_torch.models.dncnn import DnCNN
+    from pnp_admm_cnc_mri_torch.models.drunet import UNetRes
+    from pnp_admm_cnc_mri_torch.ops import fused_dc, tail_kernels
+    from pnp_admm_cnc_mri_torch.priors import denoiser
+    from pnp_admm_cnc_mri_torch.solvers import fista
+    from pnp_admm_cnc_mri_torch.train import data as data_mod, synth, trainer, unroll
+    from pnp_admm_cnc_mri_torch.utils import flops, profiling
+
+    torch.cuda.synchronize()
+    tail_kernels.reset_launches()
+    fused_dc.reset_launches()
+    out_dir = os.path.join(tmp, "train")
+    res = {}
+
+    # 1. full-width DRUNet at the published stream config (batch 16, 64^2 patches): 3 steps to pay
+    # the process's first-use cost of these convolutions (PERF.md: ~8 s), then the step's split (20
+    # steps synchronized at each part), FLOPs and time, then the CLI run, all warm
+    gen = synth.make_generator(size=128)
+    cfg = trainer.TrainConfig(learning_rate=1e-4, lr_decay="cosine")
+    stream = dict(batch_size=16, patch=64, cfg=cfg, buffer_images=64, conditioned=True, ema_decay=0.999,
+                  log_every=100, device=dev)
+    trainer.train_denoiser_stream(UNetRes(2, 1), lambda g, n: gen(g, 64), (0.0, 50 / 255), steps=3, **stream)
+    timers = profiling.PhaseTimers()
+    g0 = torch.Generator(dev).manual_seed(0)
+    with timers.phase("synthesis"):
+        gen(g0, TRAIN_BUFFER)
+        torch.cuda.synchronize()
+    trainer.train_denoiser_stream(UNetRes(2, 1), lambda g, n: gen(g, 64), (0.0, 50 / 255), steps=20, timers=timers,
+                                  **stream)
+    split = {k: v["mean_s"] * 1e3 for k, v in timers.report().items()}
+    model = trainer.prepare_model(UNetRes(2, 1), None, 0, torch.float32, dev)
+    step_fn = trainer.make_train_step(trainer.make_loss_fn(model, "l2", True),
+                                      trainer.make_optimizer(cfg, model.parameters(), 10))
+    bt = torch.rand((16, 1, 64, 64), device=dev)
+    sig = torch.full((16, 1, 1, 1), 25 / 255, device=dev)
+    noisy = bt + sig * torch.randn_like(bt)
+    step_flops = flops.matmul_flops(step_fn, noisy, bt, sig)
+    step_ms = cuda_ms(lambda: step_fn(noisy, bt, sig), reps=5, inner=5)
+    res["drunet_step"] = {"split_ms": split, "flops": step_flops, "step_ms": step_ms,
+                          "fp32_peak_share": step_flops / (step_ms / 1e3) / FP32_FLOPS}
+    # then through the CLI, at the published stream config cut to 200 steps
+    dru_npz = os.path.join(out_dir, "drunet.npz")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cli_split = {}
+    t0 = time.perf_counter()
+    lines = _cli_json(TRAIN_ARGV + ["--out", dru_npz], cli_split)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = _finite_losses(lines, "drunet stream")
+    ckpts = [d["step"] for d in lines if "ckpt" in d]
+    check(ckpts == [100, 200, 200], f"drunet stream checkpoints at {ckpts}")
+    steps_s = cli_split["train_s"] - cli_split["synthesis_s"] - cli_split["checkpoint_s"]  # the steps alone
+    res["drunet_cli"] = {"steps": TRAIN_STEPS, "wall_s": wall, "steps_per_s": TRAIN_STEPS / wall,
+                         "patches_per_s": 16 * TRAIN_STEPS / wall, "steps_only_per_s": TRAIN_STEPS / steps_s,
+                         "patches_only_per_s": 16 * TRAIN_STEPS / steps_s, "split_s": cli_split,
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                         "loss_first": losses[0], "loss_last": losses[-1]}
+    d = denoiser.build_denoiser("drunet_gray", weights=dru_npz, iter_num=8, device=dev)
+    check(describe.num_params(d.model) == 32_638_656, f"DRUNet has {describe.num_params(d.model)} parameters")
+    rng = np.random.default_rng(3)
+    gen_cpu = torch.Generator().manual_seed(3)
+    img = synth.mri_phantoms(gen_cpu, 4, 256)
+    mk = torch.from_numpy(masks.random_mask((256, 256), fraction=0.3, seed=1)).float()
+    y = torch.fft.fft2(img) * mk + torch.from_numpy(
+        (3.0 * (rng.standard_normal((4, 256, 256)) + 1j * rng.standard_normal((4, 256, 256)))).astype(np.complex64))
+    x = fista.pnp_fista(y.to(dev), mk.to(dev), 8, d)[0].x
+    check(bool(torch.isfinite(x).all()) and float(x.min()) >= 0.0 and float(x.max()) <= 1.0,
+          "PnP-FISTA with the trained DRUNet: not finite or outside [0, 1]")
+    log(f"train: DRUNet (32,638,656 parameters) through the CLI at the round-15 stream config cut to "
+        f"{TRAIN_STEPS} steps: {json.dumps(res['drunet_cli'])}; checkpoints at {ckpts}; the npz loads through "
+        f"build_denoiser and a 4 x 256^2 PnP-FISTA solve with it is finite in [0, 1]")
+    log(f"timing train: DRUNet step at 16 x 64^2 {step_ms:.3f} ms (CUDA events, float32, TF32 off), "
+        f"{step_flops / 1e9:.2f} GFLOP ({res['drunet_step']['fp32_peak_share']:.1%} of the float32 peak); split of "
+        f"a synchronized step and a 4096-image buffer synthesis (ms): {json.dumps(split)}")
+
+    # 2. DnCNN on host batches and on the device, the IRCNN bundle, FFDNet distilled from the DRUNet
+    small = ["--trainset", os.path.join(tdir, "phantoms4"), "--sigma", "15", "--batch", "64", "--patch", "40"]
+    for tag, extra in (("dncnn_host", []), ("dncnn_ondevice", ["--ondevice", "--scan_steps", "10", "--ema", "0.999"])):
+        npz = os.path.join(out_dir, f"{tag}.npz")
+        t0 = time.perf_counter()
+        lines = _cli_json(["--model", "dncnn", "--steps", "30", *small, *extra, "--out", npz])
+        torch.cuda.synchronize()
+        res[tag] = {"steps": 30, "wall_s": time.perf_counter() - t0,
+                    "losses": _finite_losses(lines, tag)[-2:]}
+        dn = denoiser.build_denoiser("dncnn_15", weights=npz, device=dev)
+        check(bool(torch.isfinite(dn(img[:2].to(dev), 0)).all()), f"{tag}: the trained DnCNN's output")
+    ir_npz = os.path.join(out_dir, "ircnn.npz")
+    t0 = time.perf_counter()
+    lines = _cli_json(["--model", "ircnn", "--bundle", "--steps", "20", "--bundle_steps", "2", *small,
+                       "--out", ir_npz])
+    torch.cuda.synchronize()
+    check(lines[-1]["bins"] == list(range(25)), f"ircnn bundle bins {lines[-1]}")
+    with np.load(ir_npz) as z:
+        check(z["params/layer0/conv/kernel"].shape == (25, 3, 3, 1, 64), "the IRCNN bundle's stack")
+    di = denoiser.build_denoiser("ircnn_gray", weights=ir_npz, iter_num=8, device=dev)
+    check(bool(torch.isfinite(di(img[:2].to(dev), 3)).all()), "the trained IRCNN bundle's output")
+    res["ircnn_bundle"] = {"steps": 20 + 24 * 2, "wall_s": time.perf_counter() - t0}
+    ff_npz = os.path.join(out_dir, "ffdnet.npz")
+    t0 = time.perf_counter()
+    lines = _cli_json(["--model", "ffdnet", "--synth", "256", "--synth_size", "128", "--patch", "64",
+                       "--batch", "32", "--lr", "5e-5", "--sigma", "0", "--sigma_max", "50", "--steps", "20",
+                       "--scan_steps", "10", "--ema", "0.999", "--lr_decay", "cosine", "--distill", dru_npz,
+                       "--distill_weight", "0.7", "--out", ff_npz])
+    torch.cuda.synchronize()
+    res["ffdnet_distill"] = {"steps": 20, "wall_s": time.perf_counter() - t0,
+                             "losses": _finite_losses(lines, "ffdnet distill")[-2:]}
+    dff = denoiser.build_denoiser("ffdnet_gray", weights=ff_npz, device=dev)
+    check(bool(torch.isfinite(dff(img[:2].to(dev), 0)).all()), "the distilled FFDNet's output")
+    log(f"train: DnCNN (nb 17) on host and on-device batches of the phantom PNGs, the IRCNN 25-bin bundle and "
+        f"FFDNet distilled from the DRUNet npz trained, saved and loaded through build_denoiser: "
+        f"{json.dumps({k: res[k] for k in ('dncnn_host', 'dncnn_ondevice', 'ircnn_bundle', 'ffdnet_distill')})}")
+
+    # 3. the unrolled trainer: full-width DRUNet through 10 PnP-FISTA iterations at 2 x 256^2
+    hw = (UNROLL_HW, UNROLL_HW)
+    mstack = np.stack([masks.random_mask(hw, fraction=0.3, seed=1), masks.radial_mask(hw),
+                       masks.cartesian_mask(hw, fraction=0.3, seed=1)]).astype(np.float32)
+    umodel = UNetRes(2, 1)
+    uden = unroll.make_drunet_ladder_denoise(umodel, UNROLL_ITERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, ulosses = unroll.train_unrolled(umodel, uden, mstack, UNROLL_ITERS, generator=synth.make_generator(size=UNROLL_HW),
+                                       steps=4, batch_size=UNROLL_B, noise_std=15.0, noise_jitter=0.3,
+                                       ema_decay=0.999, log_every=1, buffer_images=8, device=dev)
+    torch.cuda.synchronize()
+    uwall = time.perf_counter() - t0
+    check(len(ulosses) == 4 and all(math.isfinite(l) for _, l in ulosses), f"unrolled losses {ulosses}")
+    # one step's time, peak memory and gradients, checkpointed and plain, on one batch
+    clean = synth.mri_phantoms(torch.Generator(dev).manual_seed(5), UNROLL_B, UNROLL_HW)
+    mkb = torch.from_numpy(mstack[:UNROLL_B]).to(dev)
+    nz = unroll.unrolled_noise(torch.Generator(dev).manual_seed(6), (UNROLL_B, *hw), 15.0, 0.3, torch.float32)
+    grads, ustep = {}, {}
+    for remat in (True, False):
+        m = trainer.prepare_model(UNetRes(2, 1), None, 0, torch.float32, dev)
+        opt = trainer.make_optimizer(trainer.TrainConfig(learning_rate=2e-5), m.parameters(), 4)
+        rec = unroll.make_unrolled_recon(unroll.make_drunet_ladder_denoise(m, UNROLL_ITERS), UNROLL_ITERS, remat=remat)
+        stepf = unroll.make_unrolled_step(rec, opt)
+        torch.cuda.reset_peak_memory_stats()
+        _, ms = event_ms(lambda: stepf(clean, mkb, nz))
+        grads[remat] = {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+        ustep[remat] = {"step_ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    gdiff = _max_diff(grads[True], grads[False])
+    gscale = max(float(g.abs().max()) for g in grads[False].values())
+    check(gdiff <= 1e-5 * gscale, f"unrolled gradients, checkpointed vs plain: {gdiff} (scale {gscale})")
+    res["unroll"] = {"steps": 4, "wall_s": uwall, "step_ms_remat": ustep[True]["step_ms"],
+                     "peak_gib_remat": ustep[True]["peak_gib"], "step_ms_plain": ustep[False]["step_ms"],
+                     "peak_gib_plain": ustep[False]["peak_gib"], "grad_diff": gdiff, "grad_scale": gscale}
+    log(f"train: train_unrolled, full-width DRUNet, {UNROLL_ITERS} PnP-FISTA iterations, {UNROLL_B} x "
+        f"{UNROLL_HW}^2, random/radial/Cartesian masks, noise std 15 jitter 0.3, EMA: 4 steps finite; "
+        f"checkpointed vs plain gradients {gdiff:.3g} (largest gradient {gscale:.3g}); {json.dumps(res['unroll'])}")
+
+    # 4. held numbers
+    # float64 on the card against the port's CPU run: 3 DnCNN steps on host batches, one unrolled step
+    pt = data_mod.extract_patches([im.numpy() for im in synth.mri_phantoms(torch.Generator().manual_seed(7), 2, 96)],
+                                  patch=40, stride=20)
+    f64, cpu = {}, torch.device("cpu")
+    for where in (dev, cpu):
+        f64[where], _ = trainer.train_denoiser(DnCNN(1, 1, nc=64, nb=17), pt, 15 / 255, steps=3, batch_size=8,
+                                               dtype=torch.float64, device=where)
+    err_dn = _max_diff(f64[dev], f64[cpu])
+    check(err_dn <= TRAIN_F64_ATOL, f"DnCNN float64 card vs CPU after 3 steps: {err_dn}")
+    un64, ns = {}, np.random.default_rng(8)
+    c64 = ns.random((2, 64, 64))
+    m64 = np.stack([masks.random_mask((64, 64), fraction=0.3, seed=1)] * 2).astype(np.float64)
+    n64 = 2.0 * ns.standard_normal((2, 2, 64, 64))
+    for where in (dev, cpu):
+        m = trainer.prepare_model(UNetRes(2, 1, nc=(8, 16, 32, 64), nb=1), None, 0, torch.float64, where)
+        opt = trainer.make_optimizer(trainer.TrainConfig(learning_rate=1e-3), m.parameters(), 1)
+        stepf = unroll.make_unrolled_step(unroll.make_unrolled_recon(unroll.make_drunet_ladder_denoise(m, 3), 3,
+                                                                     dtype=torch.float64), opt)
+        stepf(*(torch.from_numpy(a).to(where) for a in (c64, m64, n64)))
+        un64[where] = trainer.state_of(m)
+    err_un = _max_diff(un64[dev], un64[cpu])
+    check(err_un <= TRAIN_F64_ATOL, f"unrolled step float64 card vs CPU: {err_un}")
+    # full-width DRUNet, float32 against float64 on the card: 2 steps on one injected batch
+    step_32, grad_32 = precision_readings(dev, noisy, bt, sig)
+    check(grad_32 <= TRAIN_GRAD_RTOL, f"DRUNet float32 vs float64, the first step's gradient: {grad_32} of its largest")
+    check(step_32 <= TRAIN_STEP_RTOL, f"DRUNet float32 vs float64, the change over 2 steps: {step_32} of its norm")
+    # two 20-step runs from one seed, and a third with TF32 set on in the process: bit-equal
+    runs = []
+    prev_tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    for tf32 in (False, False, True):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        runs.append(trainer.train_denoiser_stream(UNetRes(2, 1), lambda g, n: gen(g, 64), (0.0, 50 / 255), steps=20,
+                                                  scan_steps=10, seed=4, **stream))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    rep, tf = _max_diff(runs[0][0], runs[1][0]), _max_diff(runs[0][0], runs[2][0])
+    check(rep == 0.0 and runs[0][1] == runs[1][1], f"two 20-step DRUNet runs from one seed differ by {rep}")
+    check(tf == 0.0 and runs[0][1] == runs[2][1], f"the run with TF32 set on differs by {tf}")
+    res["held"] = {"dncnn_f64_card_vs_cpu": err_dn, "unroll_f64_card_vs_cpu": err_un, "drunet_f32_vs_f64_step_rel": step_32,
+                   "drunet_f32_vs_f64_grad_rel": grad_32,
+                   "repeat_diff": rep, "tf32_on_diff": tf}
+    torch.cuda.synchronize()
+    launches = {"l1_tail": tail_kernels.l1_tail.launches, "cnc_tail": tail_kernels.cnc_tail.launches,
+                "fused_iteration": fused_dc.fused_iteration.launches}
+    check(launches == dict.fromkeys(launches, 0), f"the train phase launched {launches}")
+    log(f"train: held: {json.dumps(res['held'])} (limits: float64 {TRAIN_F64_ATOL}, float32 vs float64 "
+        f"{TRAIN_GRAD_RTOL} of the largest gradient and {TRAIN_STEP_RTOL} of the 2 steps' change, repeats and TF32 "
+        f"bit-equal); K1-K3 launches on the phase {json.dumps(launches)}")
     return res
 
 
@@ -1592,6 +1898,9 @@ def main() -> dict:
         t = time.perf_counter()
         phase_sweep(dev, tmp, tdir, ddir, y, mask)
         phase("sweep", t)
+        t = time.perf_counter()
+        rates["train"] = phase_train(dev, tmp, tdir)
+        phase("train", t)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -16,6 +16,10 @@ with numpy alone and maps a Flax tree (nested dicts of arrays under
 
 A key of the tree that the module lacks, or one the module has that the
 tree lacks, raises, as does a shape that does not match.
+
+``save_npz`` runs the map the other way, so weights the port trains load
+into the JAX package (its ``convert.load_npz``) and back. ``flax_init_``
+draws a module's weights by Flax's default rule, the trainers' start.
 """
 
 from __future__ import annotations
@@ -86,6 +90,71 @@ def state_dict_from_flax(module: nn.Module, variables: Dict[str, Any], dtype=tor
     if missing:
         raise ValueError(f"the Flax tree lacks {missing} of {type(module).__name__}")
     return out
+
+
+def torch_to_flax(a: np.ndarray) -> np.ndarray:
+    """The inverse of ``flax_to_torch``: (..., B, A, kH, kW) -> (..., kH, kW, A, B)."""
+    a = np.asarray(a)
+    if a.ndim < 4:
+        return a
+    lead = tuple(range(a.ndim - 4))
+    return a.transpose(*lead, a.ndim - 2, a.ndim - 1, a.ndim - 3, a.ndim - 4)
+
+
+def flax_tree_from_state_dict(state) -> Dict[str, Any]:
+    """A module (or its ``state_dict``) as the JAX package's Flax variables
+    tree ``{"params": ...}`` of numpy arrays: the key ``a.b.weight`` at the
+    path ``a/b/kernel``, kernels back in HWIO, leading axes kept (a stack of
+    weight sets stays a stack). The inverse of ``state_dict_from_flax``."""
+    if isinstance(state, nn.Module):
+        state = state.state_dict()
+    leaf = {v: k for k, v in _LEAF.items()}
+    params: Dict[str, Any] = {}
+    for key, t in state.items():
+        *path, name = key.split(".")
+        if name not in leaf:
+            raise ValueError(f"{key}: only conv weights and biases have a Flax counterpart")
+        d = params
+        for p in path:
+            d = d.setdefault(p, {})
+        d[leaf[name]] = torch_to_flax(t.detach().cpu().numpy())
+    return {"params": params}
+
+
+def save_npz(module_or_state_dict, path: str) -> None:
+    """Write a module's weights as the JAX package's flattened ``.npz``
+    (keys ``params/<path>/kernel|bias``, kernels HWIO), in the parameters'
+    dtype. The file loads through ``load_npz`` and ``state_dict_from_flax``
+    here, and through the JAX package's ``convert.load_npz``."""
+    flat = {"/".join(p): np.ascontiguousarray(a) for p, a in _flatten(flax_tree_from_state_dict(module_or_state_dict))}
+    np.savez(path, **flat)
+
+
+def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw every conv's parameters by Flax's default rule, in module
+    order from ``generator`` (a CPU ``torch.Generator``); returns ``module``.
+
+    Kernels: ``lecun_normal``, a normal truncated to +-2 standard deviations
+    and scaled so that the variance is 1 / fan_in, with fan_in counted on
+    the Flax kernel (kH kW times its input-feature axis: ``weight.shape[1]``
+    for a conv and for a transposed conv alike); biases zero. Draws in
+    float32 on the CPU, so every device and dtype gets the same values.
+    torch's generator does not replay ``jax.random``: the values differ from
+    a Flax init, the distribution is the same."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = torch.empty(m.weight.shape, dtype=torch.float32)
+            std = math.sqrt(1.0 / w[0].numel()) / _TRUNC_STD
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            with torch.no_grad():
+                m.weight.copy_(w)
+                if m.bias is not None:
+                    m.bias.zero_()
+    return module
+
+
+# the standard deviation of a unit normal truncated to [-2, 2] (Flax's variance_scaling)
+_TRUNC_STD = 0.87962566103423978
 
 
 def random_init_(module: nn.Module) -> nn.Module:

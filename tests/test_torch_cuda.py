@@ -6,7 +6,9 @@ repeatability and its guard against TF32; the colored-noise BM3D, the BM3D
 API routes and the restoration pipelines on the card against the CPU in
 float64, and the SR operators in float32; a small scenario sweep on the
 card against the CPU, and checkpoint resumes on the card bit-equal to the
-uninterrupted solves.
+uninterrupted solves; denoiser training steps (host batches and the unrolled
+step) on the card against the CPU in float64, training runs bit-equal and
+blind to TF32, and the elastic warp's reflect gather on the card.
 
 These tests need a CUDA device (the kernels also nvcc), and skip without
 one. The file imports no JAX, so it also runs on a machine without it:
@@ -591,3 +593,76 @@ def test_checkpoint_resume_on_the_card_is_bit_equal(cuda, tmp_path):
     checkpoint.save_fista_state(str(tmp_path / "f.npz"), part_f, 3, meta={"iter_num": 8})
     got_f, _ = checkpoint.resume_fista(str(tmp_path / "f.npz"), y, mask, soft)
     assert torch.equal(got_f.x, full_f.x) and torch.equal(got_f.v, full_f.v) and got_f.t == full_f.t
+
+
+# ---------------------------------------------------------------------------
+# training
+
+
+def test_train_steps_on_the_card_match_the_cpu_in_float64(card):
+    from pnp_admm_cnc_mri_torch.models.dncnn import DnCNN
+    from pnp_admm_cnc_mri_torch.train import data as data_mod, trainer
+
+    r = np.random.default_rng(0)
+    patches = data_mod.extract_patches([r.random((64, 64)) for _ in range(2)], patch=16, stride=8)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        out[dev.type], _ = trainer.train_denoiser(DnCNN(1, 1, nc=16, nb=5), patches, (0.0, 0.2), steps=3,
+                                                  batch_size=8, cfg=trainer.TrainConfig(lr_decay="cosine"),
+                                                  dtype=torch.float64, device=dev)
+    for k in out["cpu"]:
+        assert float((out["cuda"][k].cpu() - out["cpu"][k]).abs().max()) < 1e-9
+
+
+def test_unrolled_step_on_the_card_matches_the_cpu_in_float64(card):
+    from pnp_admm_cnc_mri_torch.models.drunet import UNetRes
+    from pnp_admm_cnc_mri_torch.train import trainer, unroll
+
+    r = np.random.default_rng(1)
+    clean, masks = r.random((2, 32, 32)), (r.random((2, 32, 32)) < 0.4).astype(np.float64)
+    noise = 2.0 * r.standard_normal((2, 2, 32, 32))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        m = trainer.prepare_model(UNetRes(2, 1, nc=(4, 8, 16, 32), nb=1), None, 0, torch.float64, dev)
+        opt = trainer.make_optimizer(trainer.TrainConfig(learning_rate=1e-3), m.parameters(), 1)
+        step = unroll.make_unrolled_step(unroll.make_unrolled_recon(unroll.make_drunet_ladder_denoise(m, 3), 3,
+                                                                    dtype=torch.float64), opt)
+        step(*(torch.from_numpy(a).to(dev) for a in (clean, masks, noise)))
+        out[dev.type] = trainer.state_of(m)
+    for k in out["cpu"]:
+        assert float((out["cuda"][k].cpu() - out["cpu"][k]).abs().max()) < 1e-9
+
+
+def test_training_repeats_bit_equal_and_ignores_tf32(card):
+    from pnp_admm_cnc_mri_torch.models.drunet import UNetRes
+    from pnp_admm_cnc_mri_torch.train import synth, trainer
+
+    gen = synth.make_generator(size=64, n_disks=100)
+    runs = []
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, False, True):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            runs.append(trainer.train_denoiser_stream(UNetRes(2, 1, nc=(16, 32, 64, 128), nb=2), gen,
+                                                      (0.0, 50 / 255), steps=6, batch_size=8, patch=32,
+                                                      buffer_images=8, conditioned=True, ema_decay=0.9,
+                                                      scan_steps=3, seed=2, device=card))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    for other in runs[1:]:
+        assert other[1] == runs[0][1]
+        for k in runs[0][0]:
+            assert torch.equal(other[0][k], runs[0][0][k])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_reflect_gather_on_the_card_matches_the_cpu(card, dtype):
+    from pnp_admm_cnc_mri_torch.train import synth
+
+    g = torch.Generator().manual_seed(0)
+    img = torch.rand((3, 17, 23), generator=g, dtype=dtype)
+    y = -40 + 97 * torch.rand((3, 9, 11), generator=g, dtype=dtype)
+    x = -50 + 120 * torch.rand((3, 9, 11), generator=g, dtype=dtype)
+    ref = synth.map_coordinates_reflect(img, y, x)
+    got = synth.map_coordinates_reflect(img.to(card), y.to(card), x.to(card)).cpu()
+    assert float((got - ref).abs().max()) <= (1e-12 if dtype == torch.float64 else 1e-6)
