@@ -137,6 +137,32 @@ Phases, each timed and each fatal on failure:
            the card against the CPU (3 DnCNN steps, one unrolled step),
            float32 against float64 (full-width DRUNet, 2 steps), two 20-step
            runs from one seed bit-equal, and TF32 set on changing nothing;
+- cli:     the port's command line (``cli/main.py``, ``cli/eval_folds.py``)
+           on a testset ``set`` of 15 phantoms at 256 x 256 (``01``-``15``)
+           and ``set1`` (its ``05``), the experiments phase's masks and
+           ``noises.mat``, and one seeded full-width npz per reference model
+           name (dncnn_25, fdncnn_gray, ffdnet_gray, the ircnn_gray bundle,
+           drunet_gray, tdnet; every CNN run passes ``--weights``). All 19
+           algorithms through ``cli.main.main`` in this process: the classical
+           five at their default depth, the CNN and BM3D ones at 4 iterations
+           (the DnCNN pair, one ``--bf16`` and one ``--tuned`` run among
+           them), each with the launch counts set to 0 just before and read
+           just after (``admm_l1`` 50 K1 launches, ``admm_cnc`` 50 K2, the
+           others 0); the result line's keys equal to the JAX CLI's, every
+           per-image PSNR finite, the classical ones above their zero-filled
+           PSNR, 15 image lines and the average in each ``.log``; K1 and K2
+           equal to their plain versions at the path's (15, 256, 256) in
+           float32 with ``admm_l1``'s and ``admm_cnc``'s scalars.
+           ``admm_l1`` and ``pnp_deblur`` with ``--f64`` on the card against
+           ``--cpu --f64`` on ``set1`` (1e-9 dB; ``pnp_deblur`` is float32 in
+           both packages, held to 1e-3 dB, which a control run with its
+           denoiser's convolutions in TF32 must exceed); ``python -m
+           pnp_admm_cnc_mri_torch.cli.main admm_l1`` as a cold subprocess
+           from outside the repository (``PYTHONPATH`` this directory), equal
+           to the in-process run; ``cli.eval_folds.main`` on 5 seeded DRUNet
+           fold files that partition the 15 images (``--select_nlm 12,15``,
+           4 iterations), its composite the mean of its held-out PSNRs;
+           prints each run's ``wall_s`` and call time;
 - timing:  CUDA-event medians of the solves, of each tail kernel against its
            plain version and its bound, and of the two designs' steps and
            the cuFFT path's iteration on the same state, in turns.
@@ -149,10 +175,12 @@ next to this file, or if any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import shutil
 import subprocess
@@ -947,6 +975,252 @@ def phase_train(dev, tmp: str, tdir: str) -> dict:
     return res
 
 
+# the cli phase: the JAX CLI's result keys; the CNN and BM3D algorithms' depth
+# (cut from their 30-50 iterations); one run of each algorithm beyond the
+# classical five, covering every reference model name, the DnCNN pair, one
+# --bf16 and one --tuned run
+CLI_KEYS = {"psnr", "ssim", "re", "per_image_psnr", "wall_s", "images", "iters"}
+CLI_CLASSICAL = ("admm_l1", "admm_cnc", "fista_l1", "pgd_l1", "consensus_l1")
+CLI_DEPTH = 4
+CLI_RUNS = (
+    ("pnp_l1_bm3d", None, []), ("pnp_cnc_bm3d", None, []), ("pnp_l1_d", "drunet_gray", []),
+    ("pnp_cnc_d", "dncnn_25", ["--model2", "dncnn_25"]), ("consensus_d", "ffdnet_gray", ["--tuned"]),
+    ("consensus_fista_d", "drunet_gray", []), ("consensus_hqs_d", "ircnn_gray", []),
+    ("pnp_sr", "drunet_gray", ["--bf16"]), ("pnp_deblur", "fdncnn_gray", []), ("pnp_fista_d", "tdnet", []),
+    ("pnp_pgd_d", "ffdnet_gray", []), ("pnp_pgd_cnc", "drunet_gray", []), ("pnp_hqs_d", "ircnn_gray", []),
+    ("red_d", "dncnn_25", []),
+)
+CLI_F64_DB = 1e-9  # admm_l1 --f64, the card against the CPU, per image
+# pnp_deblur (float32 in both packages), the card against the CPU on set1: probes/cli_deblur_precision.py read
+# 3.5e-5 to 2.49e-4 dB over 4 phantom/weight seeds, and 2.88e-3 to 1.00e-2 dB with the convolutions in TF32
+CLI_DEBLUR_DB = 1e-3
+CLI_FOLD_NLM = "12,15"
+
+
+def write_cli_assets(tdir: str, root: str) -> dict:
+    """The testset ``set`` (15 phantoms at 256 x 256, ``01``-``15``), ``set1``
+    (its ``05``) under ``tdir``, and one seeded full-width npz per reference
+    model name under ``root`` (``save_npz`` of a Flax-rule init; IRCNN as the
+    25-bin bundle); returns {model name: path}."""
+    import torch
+
+    from pnp_admm_cnc_mri_torch.data import images, phantom
+    from pnp_admm_cnc_mri_torch.models import convert, dncnn, drunet, ffdnet, tdnet
+
+    for k, im in enumerate(phantom.mri_phantoms(15, H, seed=7)):
+        images.imsave(im * 255.0, os.path.join(tdir, "set", f"{k + 1:02d}.png"))
+        if k == 4:
+            images.imsave(im * 255.0, os.path.join(tdir, "set1", "05.png"))
+    make = {"dncnn_25": lambda: dncnn.DnCNN(1, 1), "fdncnn_gray": lambda: dncnn.FDnCNN(2, 1),
+            "ffdnet_gray": lambda: ffdnet.FFDNet(1, 1), "drunet_gray": lambda: drunet.UNetRes(2, 1),
+            "tdnet": lambda: tdnet.TDNet(1, 1)}
+    paths = {}
+    for k, name in enumerate([*make, "ircnn_gray"]):
+        gen = torch.Generator().manual_seed(100 + k)
+        paths[name] = os.path.join(root, f"{name}.npz")
+        if name == "ircnn_gray":
+            sds = [convert.flax_init_(dncnn.IRCNN(1, 1), gen).state_dict() for _ in range(25)]
+            convert.save_npz({n: torch.stack([sd[n] for sd in sds]) for n in sds[0]}, paths[name])
+        else:
+            convert.save_npz(convert.flax_init_(make[name](), gen), paths[name])
+    return paths
+
+
+@contextlib.contextmanager
+def _denoiser_convs_in_tf32():
+    """The port's denoisers with cuDNN's TF32 on inside the block (they turn
+    it off through ``denoiser.full_precision_convs``): a control."""
+    import torch
+
+    from pnp_admm_cnc_mri_torch.priors import denoiser
+
+    @contextlib.contextmanager
+    def tf32_convs():
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+
+    sound, denoiser.full_precision_convs = denoiser.full_precision_convs, tf32_convs
+    try:
+        yield
+    finally:
+        denoiser.full_precision_convs = sound
+
+
+def _run_main(main, argv) -> list:
+    """``main(argv)`` in this process; its stdout lines (return code 0 held)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # BM3D's ignored CNN knobs and the like
+        rc = main(argv)
+    check(rc == 0, f"{argv} returned {rc}")
+    return buf.getvalue().strip().splitlines()
+
+
+def phase_cli(dev, tmp: str, tdir: str, ddir: str) -> dict:
+    """The port's command line: the 19 algorithms through ``cli.main.main``
+    on the 15-phantom testset with the launch counts set to 0 before and read
+    after each; K1 and K2 against their plain versions at that shape;
+    ``--f64`` on the card against ``--cpu --f64``; the real entry
+    point as a cold subprocess; ``cli.eval_folds.main`` on 5 fold files."""
+    import numpy as np
+    import torch
+
+    from pnp_admm_cnc_mri_torch.cli import eval_folds, experiments, main as cli_main
+    from pnp_admm_cnc_mri_torch.models import convert, drunet
+    from pnp_admm_cnc_mri_torch.ops import fourier, fused_dc, metrics, tail_kernels
+
+    t = time.perf_counter()
+    weights = write_cli_assets(tdir, tmp)
+    t_assets = time.perf_counter() - t
+    files = ["--testsets_dir", tdir, "--data_dir", ddir]
+    # the zero-filled PSNR of each phantom, which the classical algorithms must beat: under Q_Random30,
+    # and (consensus_l1) the consensus start, the mean of the three masks' zero-filled magnitudes
+    starts = []
+    for mname in ("Q_Random30", "Q_Radial30", "Q_Cartesian30"):
+        b = experiments.prepare_batch(os.path.join(tdir, "set"), mname, ddir)
+        starts.append(torch.abs(fourier.zero_fill(torch.as_tensor(b["y"], device=dev))))
+        truth, names = torch.as_tensor(b["truth"], device=dev), b["names"]
+    zf = {"single": metrics.psnr(starts[0] * 255.0, truth).cpu().numpy(),
+          "consensus": metrics.psnr(torch.stack(starts).mean(0) * 255.0, truth).cpu().numpy()}
+    check(names == [f"{k:02d}" for k in range(1, 16)], f"the testset's names {names}")
+    runs = [(a, None, []) for a in CLI_CLASSICAL] + list(CLI_RUNS)
+    check(sorted({a for a, _, _ in runs}) == sorted(cli_main.ALGOS), "the phase does not run every algorithm")
+    out, launches, call_s = {}, {}, {}
+    for k, (algo, model, extra) in enumerate(runs):
+        argv = [algo, "--testset", "set", *files, "--results_dir", os.path.join(tmp, "cli", str(k))]
+        if model is not None:
+            argv += ["--model", model, "--weights", weights[model], "--iter_num", str(CLI_DEPTH)]
+            if "--model2" in extra:
+                argv += ["--weights2", weights[extra[extra.index("--model2") + 1]]]
+        elif algo not in CLI_CLASSICAL:
+            argv += ["--iter_num", str(CLI_DEPTH)]  # the BM3D pipelines
+        argv += extra
+        tag = "_".join(x for x in (algo, model, *[e for e in extra if e.startswith("--") and e != "--model2"]) if x)
+        torch.cuda.synchronize()
+        tail_kernels.reset_launches()
+        fused_dc.reset_launches()
+        t_call = time.perf_counter()
+        lines = _run_main(cli_main.main, argv)
+        torch.cuda.synchronize()
+        call_s[tag] = time.perf_counter() - t_call
+        launches[tag] = {"l1_tail": tail_kernels.l1_tail.launches, "cnc_tail": tail_kernels.cnc_tail.launches,
+                         "fused_iteration": fused_dc.fused_iteration.launches}
+        res = out[tag] = json.loads(lines[-1])
+        check(set(res) == CLI_KEYS, f"{tag}: the result line's keys {sorted(res)}")
+        want = {"l1_tail": 0, "cnc_tail": 0, "fused_iteration": 0}
+        if algo in ("admm_l1", "admm_cnc"):
+            want["l1_tail" if algo == "admm_l1" else "cnc_tail"] = ITERS
+        check(launches[tag] == want, f"{tag}: launches {launches[tag]}, expected {want}")
+        p = np.array([res["per_image_psnr"][n] for n in names])
+        check(res["images"] == 15 and list(res["per_image_psnr"]) == names and bool(np.all(np.isfinite(p))),
+              f"{tag}: {res}")
+        if algo in CLI_CLASSICAL:
+            base = zf["consensus" if algo == "consensus_l1" else "single"]
+            check(bool(np.all(p > base)), f"{tag}: {int(np.sum(p <= base))} images not above their zero-filled PSNR")
+        [res_dir] = os.listdir(os.path.join(tmp, "cli", str(k)))
+        with open(os.path.join(tmp, "cli", str(k), res_dir, res_dir + ".log")) as f:
+            log_lines = f.read().splitlines()
+        check(len(log_lines) == 16 and "Average PSNR" in log_lines[-1]
+              and all(re.match(LOG_LINE, line) for line in log_lines[:15]), f"{tag}: the .log {log_lines[:2]} ...")
+    # K1 and K2 against their plain versions at the CLI's shape, float32, with admm_l1's and admm_cnc's scalars
+    from pnp_admm_cnc_mri_torch.config import ADMM_CNC_DEFAULT, ADMM_L1_DEFAULT
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    shape = (len(names), H, W)
+    ops = [torch.randn(shape, generator=gen, device=dev) * 10.0 ** (-4.0 * torch.rand(shape, generator=gen, device=dev))
+           for _ in range(3)]
+    c = ADMM_L1_DEFAULT.rho * ADMM_L1_DEFAULT.lam
+    cnc = (ADMM_CNC_DEFAULT.alpha, ADMM_CNC_DEFAULT.rho, ADMM_CNC_DEFAULT.lam, ADMM_CNC_DEFAULT.b)
+    tail_err = {
+        "l1_tail": same(tail_kernels.l1_tail(*ops, c), tail_kernels.l1_tail_plain(*ops, c), "l1_tail at the CLI's"),
+        "cnc_tail": same(tail_kernels.cnc_tail(*ops, *cnc), tail_kernels.cnc_tail_plain(*ops, *cnc),
+                         "cnc_tail at the CLI's"),
+    }
+    del ops
+    # --f64: the card against the CPU on set1 (pnp_deblur runs float32 in either, as in the JAX package)
+    # and, as a control, pnp_deblur on the card with its denoiser's convolutions in TF32, which the limit must see
+    f64 = {}
+    for algo, extra in (("admm_l1", []), ("pnp_deblur", ["--model", "drunet_gray", "--weights", weights["drunet_gray"],
+                                                          "--iter_num", str(CLI_DEPTH)])):
+        got = {}
+        for where in ("card", "cpu", "tf32") if algo == "pnp_deblur" else ("card", "cpu"):
+            argv = [algo, "--f64", "--testset", "set1", *files, "--no_save", *extra,
+                    "--results_dir", os.path.join(tmp, "cli_f64", where)] + (["--cpu"] if where == "cpu" else [])
+            with _denoiser_convs_in_tf32() if where == "tf32" else contextlib.nullcontext():
+                got[where] = json.loads(_run_main(cli_main.main, argv)[-1])["per_image_psnr"]["05"]
+        f64[algo] = abs(got["card"] - got["cpu"])
+        if "tf32" in got:
+            f64["pnp_deblur_tf32"] = abs(got["tf32"] - got["cpu"])
+    check(f64["admm_l1"] < CLI_F64_DB, f"admm_l1 --f64, card vs CPU: {f64['admm_l1']} dB")
+    check(f64["pnp_deblur"] < CLI_DEBLUR_DB, f"pnp_deblur (float32), card vs CPU: {f64['pnp_deblur']} dB")
+    check(f64["pnp_deblur_tf32"] > CLI_DEBLUR_DB, f"pnp_deblur with TF32 convolutions, card vs CPU: "
+          f"{f64['pnp_deblur_tf32']} dB, within the limit {CLI_DEBLUR_DB} dB, which therefore cannot see TF32")
+    # the real entry point, cold, from outside the repository
+    sub_dir = os.path.join(tmp, "cli_sub")
+    os.makedirs(sub_dir)
+    t_sub = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pnp_admm_cnc_mri_torch.cli.main", "admm_l1", "--testset", "set",
+                           *files, "--no_save", "--results_dir", sub_dir], cwd=sub_dir, capture_output=True,
+                          text=True, timeout=600, env=dict(os.environ, PYTHONPATH=ROOT))
+    sub_s = time.perf_counter() - t_sub
+    check(proc.returncode == 0, f"the CLI subprocess exited {proc.returncode}: {proc.stderr[-2000:]}")
+    sub = json.loads(proc.stdout.strip().splitlines()[-1])
+    d_sub = max(abs(sub["per_image_psnr"][n] - out["admm_l1"]["per_image_psnr"][n]) for n in names)
+    check(set(sub) == CLI_KEYS and d_sub < CLI_F64_DB, f"the subprocess's admm_l1 vs in-process: {d_sub} dB")
+    # eval_folds on 5 seeded DRUNet fold files that partition 01-15
+    folds = {}
+    for f in range(5):
+        path = os.path.join(tmp, f"fold{f}.npz")
+        convert.save_npz(convert.flax_init_(drunet.UNetRes(2, 1), torch.Generator().manual_seed(200 + f)), path)
+        folds[f"fold{f}"] = {"weights": path, "held_out": [f"{3 * f + i:02d}" for i in (1, 2, 3)]}
+    manifest = os.path.join(tmp, "folds.json")
+    with open(manifest, "w") as fh:
+        json.dump({"model": "drunet_gray", "folds": folds}, fh)
+    t_folds = time.perf_counter()
+    prev_tmp, tempfile.tempdir = tempfile.tempdir, tmp  # the CLI runs' logs go under the temporary directory
+    try:
+        lines = _run_main(eval_folds.main, ["--manifest", manifest, "--select_nlm", CLI_FOLD_NLM, "--out",
+                                            os.path.join(tmp, "folds.jsonl"),
+                                            "--extra", " ".join([*files, "--iter_num", str(CLI_DEPTH)])])
+    finally:
+        tempfile.tempdir = prev_tmp
+    folds_s = time.perf_counter() - t_folds
+    summary = json.loads(lines[-1])
+    held = {}
+    for line in lines[:-1]:
+        rec = json.loads(line)
+        held.update(rec.get("held_out", {}))
+    check(sorted(held) == names and sorted(summary["per_image"]) == names, f"eval_folds: {lines}")
+    comp_err = abs(summary["composite_fold_exclusion_psnr"] - sum(held.values()) / 15)
+    check(comp_err < 1e-3, f"eval_folds composite {summary['composite_fold_exclusion_psnr']} vs its held-out mean")
+    with open(os.path.join(tmp, "folds.jsonl")) as fh:
+        n_rows = len(fh.read().splitlines())
+    check(n_rows == 11, f"eval_folds wrote {n_rows} JSONL rows, expected 11")
+    walls = {k: v["wall_s"] for k, v in out.items()}
+    log(f"cli: 19 algorithms through cli.main.main on 15 x {H} x {W} (classical at their default depth, CNN and BM3D "
+        f"at {CLI_DEPTH} iterations, full-width seeded weights); launches per run {json.dumps(launches)}; K1 and K2 "
+        f"against their plain versions at {shape} float32 with the CLI's scalars, max abs error "
+        f"{json.dumps(tail_err)}; every "
+        f"classical image above its zero-filled PSNR; 15 log lines and the average in each .log; --f64 card vs CPU "
+        f"on set1: admm_l1 {f64['admm_l1']:.3g} dB, pnp_deblur (float32) {f64['pnp_deblur']:.3g} dB (limit "
+        f"{CLI_DEBLUR_DB:g}; with TF32 convolutions {f64['pnp_deblur_tf32']:.3g} dB); the cold "
+        f"subprocess's admm_l1 vs in-process {d_sub:.3g} dB; eval_folds selected {json.dumps(summary['selected_nlm'])}, "
+        f"composite {summary['composite_fold_exclusion_psnr']} (its held-out mean within {comp_err:.2g})")
+    log(f"timing cli (s): wall_s (the solve, the CLI's own) {json.dumps(walls)}; each in-process call "
+        f"{json.dumps({k: round(v, 4) for k, v in call_s.items()})}; the cold subprocess {sub_s:.3f}; eval_folds "
+        f"(10 CLI runs) {folds_s:.3f}; assets (PNGs, 6 npz) {t_assets:.3f}; mean PSNR (dB) "
+        f"{json.dumps({k: round(v['psnr'], 3) for k, v in out.items()})}")
+    return {"wall_s": walls, "call_s": call_s, "subprocess_s": sub_s, "eval_folds_s": folds_s, "tail_err": tail_err}
+
+
 def main() -> dict:
     import numpy as np
     import torch
@@ -1659,10 +1933,10 @@ def main() -> dict:
     row = TUNED_DEBLUR["drunet_gray"]
     den_dru = seeded_drunet(row["iter_num"], row["nlm"])
     runs = {
-        "deblur_bm3d": (experiments.run_deblur, dict(model_name="bm3d", iter_num=8, noise=noise_deblur)),
-        "sr_bm3d": (experiments.run_sr, dict(model_name="bm3d", sf=2, iter_num=8, noise=noise_sr)),
-        "deblur_drunet": (experiments.run_deblur, dict(denoise=den_dru, noise=noise_deblur, **row)),
-        "sr_drunet": (experiments.run_sr, dict(denoise=den_dru, sf=2, noise=noise_sr, **row)),
+        "deblur_bm3d": (experiments.deblur_batch, dict(model_name="bm3d", iter_num=8, noise=noise_deblur)),
+        "sr_bm3d": (experiments.sr_batch, dict(model_name="bm3d", sf=2, iter_num=8, noise=noise_sr)),
+        "deblur_drunet": (experiments.deblur_batch, dict(denoise=den_dru, noise=noise_deblur, **row)),
+        "sr_drunet": (experiments.sr_batch, dict(denoise=den_dru, sf=2, noise=noise_sr, **row)),
     }
     restore_ms, restored, degraded = {}, {}, {}
     for k, (fn, kw) in runs.items():
@@ -1690,7 +1964,7 @@ def main() -> dict:
         check(all(a_ > b_ for a_, b_ in zip(rq[k], rq[base])), f"{k}: PSNR {rq[k]} not above {base} {rq[base]}")
     # float32 against float64 on the card: DRUNet (seeded weights), 2 iterations, 2 images
     f3264 = {}
-    for k, fn, nz in (("deblur", experiments.run_deblur, noise_deblur), ("sr", experiments.run_sr, noise_sr)):
+    for k, fn, nz in (("deblur", experiments.deblur_batch, noise_deblur), ("sr", experiments.sr_batch, noise_sr)):
         outs = [fn(x4[:2], denoise=seeded_drunet(2, 2.0, dt_), iter_num=2, nlm=2.0, noise=nz[:2], dtype=dt_)[1]
                 for dt_ in (torch.float32, torch.float64)]
         f3264[k] = float((outs[0].double() - outs[1]).abs().max())
@@ -1901,6 +2175,9 @@ def main() -> dict:
         t = time.perf_counter()
         rates["train"] = phase_train(dev, tmp, tdir)
         phase("train", t)
+        t = time.perf_counter()
+        rates["cli"] = phase_cli(dev, tmp, tdir, ddir)
+        phase("cli", t)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

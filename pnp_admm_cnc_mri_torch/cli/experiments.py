@@ -12,13 +12,16 @@ dtype default is ``torch.get_default_dtype()`` for the classical solvers,
 as the JAX package's follows ``jax_enable_x64``, and float32 for PnP.
 
 The restoration half holds the blur kernels, the restoration prior and the
-bodies of ``run_deblur`` and ``run_sr``, from the ground truth to the
-restored batch, as functions of arrays (their noise comes from
-``jax.random`` in the JAX package, which torch cannot replay): both take
-``x_true`` and return ``(degraded, restored)``. Each runs DPIR-style HQS
-(reference ``utils/utils_pnp.py:14-23``): the closed-form frequency-domain
-data solution of ``ops/sisr.py`` alternates with a denoiser, both driven by
-one ``get_rho_sigma`` ladder; the whole batch restores at once.
+DPIR pipelines. ``run_deblur`` and ``run_sr`` take the JAX package's
+keyword signature (plus ``noise``, ``dtype`` and ``device``): each loads a
+testset, degrades it with the JAX package's noise (``utils/jax_random.py``
+replays ``jax.random.normal(PRNGKey(seed))``), restores it and scores and
+logs it. Their bodies, from the ground truth to the restored batch, are
+``deblur_batch`` and ``sr_batch``: functions of arrays that return
+``(degraded, restored)``. Each runs DPIR-style HQS (reference
+``utils/utils_pnp.py:14-23``): the closed-form frequency-domain data
+solution of ``ops/sisr.py`` alternates with a denoiser, both driven by one
+``get_rho_sigma`` ladder; the whole batch restores at once.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from pnp_admm_cnc_mri_torch.data import images, masks, noise
 from pnp_admm_cnc_mri_torch.ops import metrics as metrics_mod
 from pnp_admm_cnc_mri_torch.ops import schedules, sisr
 from pnp_admm_cnc_mri_torch.solvers.admm import resolve_device
+from pnp_admm_cnc_mri_torch.utils import jax_random
 from pnp_admm_cnc_mri_torch.utils import logger as logger_mod
 
 
@@ -92,11 +96,18 @@ def score_and_log(
     ``x``: the [0, 1] reconstructions (B, H, W), a tensor (scored on its
     device, in its dtype) or a numpy array. ``round_uint8`` mirrors
     ``【6】:315``, which rounds to uint8 before scoring (the other scripts
-    score the float ``x * 255``).
+    score the float ``x * 255``). Without ``log`` the lines go to
+    ``results_dir/result_name/result_name.log`` through a logger that is
+    released when they are written, so each call logs into its own
+    ``results_dir``.
     """
-    e_path = os.path.join(results_dir, result_name)
     if log is None:
-        log = logger_mod.logger_info(result_name, os.path.join(e_path, result_name + ".log"))
+        log = logger_mod.logger_info(result_name, os.path.join(results_dir, result_name, result_name + ".log"))
+        try:
+            return score_and_log(x, truth, names, result_name, results_dir, save_images, round_uint8, log)
+        finally:
+            logger_mod.release(log)
+    e_path = os.path.join(results_dir, result_name)
     x = torch.as_tensor(x)
     img_e = x * 255.0
     if round_uint8:
@@ -132,6 +143,13 @@ def score_and_log(
 _HOST_TYPES = {torch.float32: (np.float32, np.complex64), torch.float64: (np.float64, np.complex128)}
 
 
+def device_complex(arr, dtype, device) -> torch.Tensor:
+    """A host complex array on ``device`` in the complex type of the real
+    ``dtype``: cast on the host (complex64 or complex128), then one copy, as
+    the JAX package's ``_device_complex`` casts before its transfer."""
+    return torch.as_tensor(np.asarray(arr).astype(_HOST_TYPES[dtype][1]), device=device)
+
+
 def _drive(solve: Callable, testset: str, mask_name: str, testsets_dir, data_dir, results_dir: str,
            save_images: bool, only, dtype, device, result_name: str, iters: int,
            round_uint8: bool = False) -> Dict[str, float]:
@@ -141,9 +159,8 @@ def _drive(solve: Callable, testset: str, mask_name: str, testsets_dir, data_dir
     device = resolve_device(device)
     batch = prepare_batch(os.path.join(testsets_dir or images.DEFAULT_TESTSETS, testset), mask_name, data_dir,
                           only=only)
-    real, cplx = _HOST_TYPES[dtype]
-    y = torch.as_tensor(batch["y"].astype(cplx), device=device)
-    mask = torch.as_tensor(np.asarray(batch["mask"]).astype(real), device=device)
+    y = device_complex(batch["y"], dtype, device)
+    mask = torch.as_tensor(np.asarray(batch["mask"]).astype(_HOST_TYPES[dtype][0]), device=device)
     t0 = time.perf_counter()
     x = solve(y, mask)
     if x.is_cuda:
@@ -440,23 +457,10 @@ def _restore(z, iter_num: int, data_step: Callable, denoise: Callable) -> torch.
     return z
 
 
-def run_deblur(x_true, model_name: str = "drunet_gray", kernel: str = "aniso", iter_num: int = 8,
-               nlm: Optional[float] = None, noise_sigma255: float = 2.55, noise=None,
-               generator: Optional[torch.Generator] = None, seed: int = 0, weights: Optional[str] = None,
-               x8: bool = False, model_sigma1: Optional[float] = None, bf16: bool = False, clean: bool = False,
-               denoise: Optional[Callable] = None, dtype=torch.float32, device=None):
-    """PnP non-blind deblurring of a batch x_true (..., H, W) in [0, 1]; the
-    body of the JAX package's ``run_deblur``. Returns ``(y, z)``: the
-    blurred noisy images and the restored ones.
-
-    Degradation: circular blur with ``make_blur_kernel(kernel)``
-    (``sisr.wrap_convolve``) plus Gaussian noise of std ``noise_sigma255 /
-    255`` (``noise``: unit-variance noise of y's shape; default from a
-    ``torch.Generator`` seeded with ``seed``). Solver: HQS alternating the
-    diagonal data solve (``sisr.deblur_solution``) with the prior of
-    ``model_name`` (a model-zoo CNN, or 'bm3d'), or ``denoise(v, i)`` when
-    given. ``device``: None for the CUDA card.
-    """
+def _deblur_problem(x_true, model_name, kernel, iter_num, nlm, noise_sigma255, noise, generator, seed, weights, x8,
+                    model_sigma1, bf16, clean, denoise, dtype, device):
+    """The degraded batch y, the start z0, the data step and the prior of
+    :func:`deblur_batch`."""
     x = _truth(x_true, 8, dtype, device)
     k = torch.as_tensor(make_blur_kernel(kernel), device=x.device).to(dtype)
     y = _add_noise(sisr.wrap_convolve(x, k), noise_sigma255, noise, generator, seed)
@@ -468,36 +472,160 @@ def run_deblur(x_true, model_name: str = "drunet_gray", kernel: str = "aniso", i
     if denoise is None:
         denoise = _restoration_prior(model_name, iter_num, eff_nlm, sigmas, weights, x8, model_sigma1, bf16,
                                      clean=clean, dtype=dtype, device=x.device)
-    return y, _restore(y, iter_num, lambda z, i: sisr.deblur_solution(z, f2b, fbfy, float(rhos[i])), denoise)
+    return y, y, lambda z, i: sisr.deblur_solution(z, f2b, fbfy, float(rhos[i])), denoise
 
 
-def run_sr(x_true, model_name: str = "drunet_gray", sf: int = 2, iter_num: int = 8, nlm: Optional[float] = None,
-           noise_sigma255: float = 1.5, noise=None, generator: Optional[torch.Generator] = None, seed: int = 0,
-           weights: Optional[str] = None, x8: bool = False, model_sigma1: Optional[float] = None, bf16: bool = False,
-           clean: bool = False, denoise: Optional[Callable] = None, dtype=torch.float32, device=None):
-    """PnP super-resolution (x ``sf``) of a batch x_true (..., H, W) in [0,
-    1]; the body of the JAX package's ``run_sr``. Returns ``(y, z)``: the
-    low-resolution noisy images and the restored ones.
-
-    Degradation: an anisotropic Gaussian blur (9x9, theta 0.7, l1 2.5, l2
-    1.0), sf-fold decimation (``sisr.classical_degradation``) and Gaussian
-    noise as in :func:`run_deblur`. Solver: from ``kron(y, ones(sf, sf))``,
-    HQS alternating the closed-form data solution (``sisr.data_solution``)
-    with the prior; the ladder ends at ``max(sf, noise_sigma255)`` unless
-    ``nlm`` is given.
-    """
+def _sr_problem(x_true, model_name, sf, iter_num, nlm, noise_sigma255, noise, generator, seed, weights, x8,
+                model_sigma1, bf16, clean, denoise, dtype, device):
+    """The degraded batch y, the start z0, the data step and the prior of
+    :func:`sr_batch`."""
     x = _truth(x_true, sf * 8, dtype, device)
     k = torch.as_tensor(sisr.anisotropic_gaussian(ksize=9, theta=0.7, l1=2.5, l2=1.0), device=x.device).to(dtype)
     y = _add_noise(sisr.classical_degradation(x, k, sf), noise_sigma255, noise, generator, seed)
     x0 = y.repeat_interleave(sf, dim=-2).repeat_interleave(sf, dim=-1)  # kron(y, ones(sf, sf))
     eff_nlm = float(max(sf, noise_sigma255)) if nlm is None else float(nlm)
     fb, fbc, f2b, fbfy = sisr.pre_calculate(y, k, sf)
-    # the sigma floor keeps rhos above 0 for noiseless SR, as in run_deblur
+    # the sigma floor keeps rhos above 0 for noiseless SR, as in deblurring
     rhos, sigmas = schedules.get_rho_sigma(
         sigma=max(noise_sigma255, 0.1) / 255.0, iter_num=iter_num,
         model_sigma1=model_sigma1 if model_sigma1 is not None else 49.0, model_sigma2=eff_nlm)
     if denoise is None:
         denoise = _restoration_prior(model_name, iter_num, eff_nlm, sigmas, weights, x8, model_sigma1, bf16,
                                      clean=clean, dtype=dtype, device=x.device)
-    return y, _restore(x0, iter_num, lambda z, i: sisr.data_solution(z, fb, fbc, f2b, fbfy, float(rhos[i]), sf),
-                       denoise)
+    return y, x0, lambda z, i: sisr.data_solution(z, fb, fbc, f2b, fbfy, float(rhos[i]), sf), denoise
+
+
+def deblur_batch(x_true, model_name: str = "drunet_gray", kernel: str = "aniso", iter_num: int = 8,
+                 nlm: Optional[float] = None, noise_sigma255: float = 2.55, noise=None,
+                 generator: Optional[torch.Generator] = None, seed: int = 0, weights: Optional[str] = None,
+                 x8: bool = False, model_sigma1: Optional[float] = None, bf16: bool = False, clean: bool = False,
+                 denoise: Optional[Callable] = None, dtype=torch.float32, device=None):
+    """PnP non-blind deblurring of a batch x_true (..., H, W) in [0, 1]: the
+    body of :func:`run_deblur`, from the ground truth to the restored batch.
+    Returns ``(y, z)``: the blurred noisy images and the restored ones.
+
+    Degradation: circular blur with ``make_blur_kernel(kernel)``
+    (``sisr.wrap_convolve``) plus Gaussian noise of std ``noise_sigma255 /
+    255`` (``noise``: unit-variance noise of y's shape; default from a
+    ``torch.Generator`` seeded with ``seed``). Solver: HQS alternating the
+    diagonal data solve (``sisr.deblur_solution``) with the prior of
+    ``model_name`` (a model-zoo CNN, or 'bm3d'), or ``denoise(v, i)`` when
+    given. ``device``: None for the CUDA card.
+    """
+    y, z0, data_step, denoise = _deblur_problem(x_true, model_name, kernel, iter_num, nlm, noise_sigma255, noise,
+                                                generator, seed, weights, x8, model_sigma1, bf16, clean, denoise,
+                                                dtype, device)
+    return y, _restore(z0, iter_num, data_step, denoise)
+
+
+def sr_batch(x_true, model_name: str = "drunet_gray", sf: int = 2, iter_num: int = 8, nlm: Optional[float] = None,
+             noise_sigma255: float = 1.5, noise=None, generator: Optional[torch.Generator] = None, seed: int = 0,
+             weights: Optional[str] = None, x8: bool = False, model_sigma1: Optional[float] = None,
+             bf16: bool = False, clean: bool = False, denoise: Optional[Callable] = None, dtype=torch.float32,
+             device=None):
+    """PnP super-resolution (x ``sf``) of a batch x_true (..., H, W) in [0,
+    1]: the body of :func:`run_sr`. Returns ``(y, z)``: the low-resolution
+    noisy images and the restored ones.
+
+    Degradation: an anisotropic Gaussian blur (9x9, theta 0.7, l1 2.5, l2
+    1.0), sf-fold decimation (``sisr.classical_degradation``) and Gaussian
+    noise as in :func:`deblur_batch`. Solver: from ``kron(y, ones(sf, sf))``,
+    HQS alternating the closed-form data solution (``sisr.data_solution``)
+    with the prior; the ladder ends at ``max(sf, noise_sigma255)`` unless
+    ``nlm`` is given.
+    """
+    y, z0, data_step, denoise = _sr_problem(x_true, model_name, sf, iter_num, nlm, noise_sigma255, noise, generator,
+                                            seed, weights, x8, model_sigma1, bf16, clean, denoise, dtype, device)
+    return y, _restore(z0, iter_num, data_step, denoise)
+
+
+def _run_restoration(problem, crop: int, out_shape, result_name: str, iter_num: int, testset: str, testsets_dir,
+                     results_dir: str, save_images: bool, only, seed: int, noise, dtype, device, **kw):
+    """The testset runners' common body: load, keep ``only``, crop to
+    ``crop``, degrade with ``noise`` (default: JAX's normals of ``seed``),
+    restore on the device (timed to its end there), score and log."""
+    imgs01, _, names = images.load_testset(os.path.join(testsets_dir or images.DEFAULT_TESTSETS, testset))
+    if only:
+        idx = _filter_only(names, only)
+        imgs01, names = imgs01[idx], [names[i] for i in idx]
+    h, w = imgs01.shape[-2:]
+    imgs01 = imgs01[..., : h - h % crop, : w - w % crop]
+    if noise is None:
+        noise = jax_random.normal(seed, out_shape(imgs01.shape))
+    _y, z0, data_step, denoise = problem(imgs01, noise=noise, generator=None, seed=seed, dtype=dtype,
+                                         device=device, iter_num=iter_num, **kw)
+    t0 = time.perf_counter()
+    z = _restore(z0, iter_num, data_step, denoise)
+    if z.is_cuda:
+        torch.cuda.synchronize(z.device)
+    dt = time.perf_counter() - t0
+    avg = score_and_log(z, imgs01 * 255.0, names, result_name, results_dir, save_images)
+    avg.update(wall_s=dt, images=len(names), iters=iter_num)
+    return avg
+
+
+def run_deblur(
+    model_name: str = "drunet_gray",
+    kernel: str = "aniso",
+    iter_num: int = 8,
+    nlm: Optional[float] = None,
+    noise_sigma255: float = 2.55,
+    testset: str = "set1",
+    testsets_dir: Optional[str] = None,
+    results_dir: str = "results",
+    save_images: bool = True,
+    only: Optional[str] = None,
+    weights: Optional[str] = None,
+    seed: int = 0,
+    x8: bool = False,
+    model_sigma1: Optional[float] = None,
+    bf16: bool = False,
+    clean: bool = False,
+    noise=None,
+    dtype=torch.float32,
+    device=None,
+) -> Dict[str, float]:
+    """PnP non-blind deblurring over a testset (the JAX package's
+    ``run_deblur``): load, keep ``only``, modcrop to 8, blur and add noise of
+    ``noise_sigma255 / 255`` times ``jax_random.normal(seed, y.shape)`` (the
+    JAX package's ``jax.random.normal(PRNGKey(seed))``) unless ``noise`` is
+    given, restore with :func:`deblur_batch`'s HQS, and score and log under
+    ``{testset}_deblur_{kernel}_{model_name}``. ``wall_s`` times the
+    restoration loop. The JAX package runs it in float32, whatever x64 says."""
+    return _run_restoration(
+        _deblur_problem, 8, lambda s: s, f"{testset}_deblur_{kernel}_{model_name}", iter_num, testset,
+        testsets_dir, results_dir, save_images, only, seed, noise, dtype, device, model_name=model_name,
+        kernel=kernel, nlm=nlm, noise_sigma255=noise_sigma255, weights=weights, x8=x8, model_sigma1=model_sigma1,
+        bf16=bf16, clean=clean, denoise=None)
+
+
+def run_sr(
+    model_name: str = "drunet_gray",
+    sf: int = 2,
+    iter_num: int = 8,
+    nlm: Optional[float] = None,
+    noise_sigma255: float = 1.5,
+    testset: str = "set1",
+    testsets_dir: Optional[str] = None,
+    results_dir: str = "results",
+    save_images: bool = True,
+    only: Optional[str] = None,
+    weights: Optional[str] = None,
+    seed: int = 0,
+    x8: bool = False,
+    model_sigma1: Optional[float] = None,
+    bf16: bool = False,
+    clean: bool = False,
+    noise=None,
+    dtype=torch.float32,
+    device=None,
+) -> Dict[str, float]:
+    """PnP super-resolution over a testset (the JAX package's ``run_sr``):
+    as :func:`run_deblur`, with a modcrop to ``sf * 8``, the degradation and
+    solver of :func:`sr_batch`, the noise drawn at the low resolution, and
+    the result name ``{testset}_sr{sf}_{model_name}``."""
+    return _run_restoration(
+        _sr_problem, sf * 8, lambda s: (*s[:-2], s[-2] // sf, s[-1] // sf), f"{testset}_sr{sf}_{model_name}",
+        iter_num, testset, testsets_dir, results_dir, save_images, only, seed, noise, dtype, device,
+        model_name=model_name, sf=sf, nlm=nlm, noise_sigma255=noise_sigma255, weights=weights, x8=x8,
+        model_sigma1=model_sigma1, bf16=bf16, clean=clean, denoise=None)

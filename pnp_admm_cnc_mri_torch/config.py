@@ -182,6 +182,26 @@ TUNED_PGD_CNC = {
     "dncnn_25": dict(iter_num=30, alpha=1.0, lam=0.001, b=36.0),
 }
 
+# Settings for the weights trained without the evaluation images
+# (model_zoo/<name>_clean.npz), which the CLI's --clean --tuned selects;
+# entries absent here fall back to the TUNED_* tables above.
+TUNED_PNP_L1_CLEAN: dict = {
+    "dncnn_15": dict(iter_num=4, rho=1.0),
+    "dncnn_25": dict(iter_num=4, rho=1.5),
+    "dncnn_50": dict(iter_num=4, rho=4.0),
+    "fdncnn_gray": dict(iter_num=8, rho=0.5, nlm=8.0),
+    "ffdnet_gray": dict(iter_num=10, rho=0.5, nlm=8.0),
+    "ircnn_gray": dict(iter_num=24, rho=0.45, nlm=5.0),
+    "drunet_gray": dict(iter_num=50, rho=0.5, nlm=8.0, x8=False),
+}
+TUNED_PNP_CNC_CLEAN: dict = {
+    "drunet_gray": dict(iter_num=4, alpha=1.4, nlm=8.0),
+    "ffdnet_gray": dict(iter_num=8, alpha=1.4, nlm=12.0),
+    "fdncnn_gray": dict(iter_num=8, alpha=1.0, nlm=8.0),
+    "ircnn_gray": dict(iter_num=10, alpha=0.7, nlm=5.0),
+    "dncnn_pair": dict(iter_num=6, alpha=0.5),
+}
+
 # Consensus-ADMM settings for the weights trained without the evaluation
 # images (model_zoo/<name>_clean.npz).
 TUNED_CONSENSUS_D_CLEAN: dict = {

@@ -4,6 +4,7 @@ A copy of the JAX package's ``utils/logger.py`` (standard library only).
 Reference ``utils/utils_logger.py:25-44``: a named logger with an
 append-mode FileHandler and a StreamHandler, format ``%(asctime)s.%(msecs)03d
 : %(message)s``; and a JSONL record sink for machine-readable sweeps.
+``release`` (not in the JAX module) closes a logger's handlers.
 """
 
 from __future__ import annotations
@@ -31,6 +32,15 @@ def logger_info(logger_name: str, log_path: str = "default.log") -> logging.Logg
     sh.setFormatter(formatter)
     log.addHandler(sh)
     return log
+
+
+def release(log: logging.Logger) -> None:
+    """Close and detach ``log``'s handlers, so that the next ``logger_info``
+    of the same name opens the file it is given (``logger_info`` returns a
+    logger that has handlers as it is)."""
+    for h in list(log.handlers):
+        h.close()
+        log.removeHandler(h)
 
 
 class TeeLogger:

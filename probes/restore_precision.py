@@ -4,7 +4,7 @@
     python3 probes/restore_precision.py [cpu|cuda] [seeded|zoo]
                                         (default: cuda seeded)
 
-Runs ``run_deblur`` and ``run_sr`` (x2) on the inputs of ``chip_smoke.py``'s
+Runs ``deblur_batch`` and ``sr_batch`` (x2) on the inputs of ``chip_smoke.py``'s
 restore phase (phantoms seed 0, the first 2 of 4 x 256 x 256; noise numpy
 seeds 3 and 4) with full-width DRUNet (nc 64..512, nb 4) over 2 iterations
 at nlm 2, once in float32 and once in float64, and prints the max absolute
@@ -54,7 +54,7 @@ def main() -> None:
     x = torch.from_numpy(phantom.mri_phantoms(4, N, seed=0)[:2])
     noise = {"deblur": np.random.default_rng(3).standard_normal((4, N, N)).astype(np.float32)[:2],
              "sr": np.random.default_rng(4).standard_normal((4, N // 2, N // 2)).astype(np.float32)[:2]}
-    for name, fn in (("deblur", experiments.run_deblur), ("sr", experiments.run_sr)):
+    for name, fn in (("deblur", experiments.deblur_batch), ("sr", experiments.sr_batch)):
         t = time.perf_counter()
         outs = [fn(x, denoise=drunet(weights, dt, dev), iter_num=ITERS, nlm=NLM, noise=noise[name], dtype=dt,
                    device=dev)[1] for dt in (torch.float32, torch.float64)]

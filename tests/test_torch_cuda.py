@@ -6,7 +6,8 @@ repeatability and its guard against TF32; the colored-noise BM3D, the BM3D
 API routes and the restoration pipelines on the card against the CPU in
 float64, and the SR operators in float32; a small scenario sweep on the
 card against the CPU, and checkpoint resumes on the card bit-equal to the
-uninterrupted solves; denoiser training steps (host batches and the unrolled
+uninterrupted solves; the command line in float64 on the card against the
+CPU; denoiser training steps (host batches and the unrolled
 step) on the card against the CPU in float64, training runs bit-equal and
 blind to TF32, and the elastic warp's reflect gather on the card.
 
@@ -491,7 +492,7 @@ def test_restoration_on_the_card_matches_the_cpu_in_float64(card, kind):
     x = _bm3d_images(2, 64, 17, noise=0.0)
     n = 64 if kind == "deblur" else 32
     nz = np.random.default_rng(18).standard_normal((2, n, n))
-    fn = bm3d_experiments.run_deblur if kind == "deblur" else bm3d_experiments.run_sr
+    fn = bm3d_experiments.deblur_batch if kind == "deblur" else bm3d_experiments.sr_batch
     runs = {dev: fn(x, model_name="bm3d", iter_num=3, noise=nz, dtype=torch.float64, device=dev)[1]
             for dev in (card, "cpu")}
     # cuFFT and the CPU's FFT differ in the last bits, and SR's first rung
@@ -565,6 +566,30 @@ def test_sweep_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch, capsys, 
     for a, b in zip(rows["card"], rows["cpu"]):
         # float32 cuFFT against the CPU's FFT, 20 iterations
         assert abs(a["psnr"] - b["psnr"]) < 1e-3 and abs(a["residual"] - b["residual"]) < 1e-6 + 1e-3 * b["residual"]
+
+
+@pytest.mark.parametrize("algo", ["admm_l1", "admm_cnc", "consensus_l1"])
+def test_cli_on_the_card_matches_the_cpu_in_float64(cuda, tmp_path, capsys, algo):
+    """``cli.main`` with ``--f64`` on the card (K1 or K2 once an iteration for
+    ADMM) against ``--cpu --f64``: the same result keys, per-image PSNR
+    within 1e-9 dB."""
+    import json
+
+    from pnp_admm_cnc_mri_torch.cli import main as cli_main
+
+    tdir, ddir = _write_assets(str(tmp_path))
+    argv = [algo, "--f64", "--testset", "set1", "--testsets_dir", tdir, "--data_dir", ddir, "--iter_num", "20"]
+    res = {}
+    for dev, extra in (("card", []), ("cpu", ["--cpu"])):
+        tail_kernels.reset_launches()
+        assert cli_main.main(argv + extra + ["--results_dir", str(tmp_path / dev)]) == 0
+        res[dev] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        if dev == "card":
+            counts = (tail_kernels.l1_tail.launches, tail_kernels.cnc_tail.launches)
+            assert counts == {"admm_l1": (20, 0), "admm_cnc": (0, 20), "consensus_l1": (0, 0)}[algo]
+    assert set(res["card"]) == set(res["cpu"]) and res["card"]["images"] == res["cpu"]["images"] == 2
+    for k, v in res["cpu"]["per_image_psnr"].items():
+        assert abs(res["card"]["per_image_psnr"][k] - v) < 1e-9
 
 
 def test_checkpoint_resume_on_the_card_is_bit_equal(cuda, tmp_path):

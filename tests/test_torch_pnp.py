@@ -220,8 +220,11 @@ def test_complex_psnr_and_all_metrics_match_jax():
 
 
 def test_config_tables_equal_the_jax_packages():
-    for name in ("PNP_L1_DEFAULTS", "PNP_CNC_DEFAULTS", "TUNED_PNP_L1", "TUNED_PNP_CNC"):
+    for name in ("PNP_L1_DEFAULTS", "PNP_CNC_DEFAULTS", "TUNED_PNP_L1", "TUNED_PNP_CNC", "TUNED_PNP_L1_CLEAN",
+                 "TUNED_PNP_CNC_CLEAN", "TUNED_BM3D", "MASK_NAMES"):
         assert getattr(config, name) == getattr(jconfig, name), name
+    for name in ("ADMM_L1_DEFAULT", "ADMM_CNC_DEFAULT"):
+        assert dataclasses.asdict(getattr(config, name)) == dataclasses.asdict(getattr(jconfig, name)), name
     assert dataclasses.asdict(config.DenoiserConfig()) == dataclasses.asdict(jconfig.DenoiserConfig())
     cfg = config.DenoiserConfig(model_name="drunet_gray", x8=True)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jconfig.DenoiserConfig(model_name="drunet_gray", x8=True))

@@ -110,7 +110,7 @@ def _noise(kind, seed=3):
 
 
 def _port(kind, x_true, **kw):
-    fn = experiments.run_deblur if kind == "deblur" else experiments.run_sr
+    fn = experiments.deblur_batch if kind == "deblur" else experiments.sr_batch
     return fn(x_true, device=CPU, **kw)
 
 
@@ -214,7 +214,7 @@ def test_tuned_tables_equal_the_jax_packages():
 def test_entry_points_need_the_card_or_the_cpu(truth):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    for fn in (experiments.run_deblur, experiments.run_sr):
+    for fn in (experiments.deblur_batch, experiments.sr_batch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn(truth, model_name="bm3d", iter_num=1)
 
