@@ -163,6 +163,28 @@ Phases, each timed and each fatal on failure:
            fold files that partition the 15 images (``--select_nlm 12,15``,
            4 iterations), its composite the mean of its held-out PSNRs;
            prints each run's ``wall_s`` and call time;
+- distributed: the multi-device path of ``parallel/`` (mesh, reductions,
+           spatial FFT-ADMM, sharded consensus), the sharded sweep, the
+           multihost worker and the dp x tp trainer. At world 1 on NCCL in
+           this process (the 1 x 1 mesh with its groups): the sweep's
+           4,608-scenario grid with ADMM-L1 and ADMM-CNC, the three sharded
+           consensus solves on one phantom through 4 masks (ADMM in float64
+           at ``ADMM_L1_DEFAULT``, FISTA and HQS with seeded full-width
+           DRUNet at ``TUNED_CONSENSUS_*`` cut to 4 iterations),
+           ``spatial_admm_l1`` at 4 x 256 x 256 x 50 in float64,
+           ``multihost.worker`` at 512 scenarios, and 3 steps of
+           ``train_denoiser(mesh=)`` with full-width DRUNet at 16 x 64 x 64,
+           each equal to its one-device run (bit for bit; the spatial solve,
+           whose FFT runs as two 1-D passes, within 1e-9), with K1-K3's
+           counts set to 0 just before each and read just after, its
+           CUDA-event time and the share of that in collectives. Then worlds
+           of 2 and 4 spawned processes over gloo, all on ``cuda:0`` (NCCL
+           takes one rank per card): the consensus solves at both, the
+           spatial solve at space 2, space 4 and data 2 x space 2, the sweep
+           at world 2, the trainer at data 2 x space 2, held to the
+           one-device results (float64 within 1e-9, float32 within the
+           limits below); K1 and K2 against their plain versions at the row
+           shards' and the half grid's shapes;
 - timing:  CUDA-event medians of the solves, of each tail kernel against its
            plain version and its bound, and of the two designs' steps and
            the cuFFT path's iteration on the same state, in turns.
@@ -1221,6 +1243,465 @@ def phase_cli(dev, tmp: str, tdir: str, ddir: str) -> dict:
     return {"wall_s": walls, "call_s": call_s, "subprocess_s": sub_s, "eval_folds_s": folds_s, "tail_err": tail_err}
 
 
+# -- distributed: the multi-device path (parallel/, the sharded sweep, multihost, the dp x tp trainer) --
+DIST_TIMEOUT_S = 300.0  # every process group's and every spawned world's limit: a hung rank fails the run
+DIST_DEPTH = 4  # the CNN consensus solves' iterations (the cli phase's cut)
+DIST_SPATIAL_B = 4
+DIST_MULTIHOST_SCENARIOS = 512
+DIST_TRAIN_STEPS, DIST_TRAIN_BATCH, DIST_TRAIN_PATCH = 3, 16, 64
+DIST_F64_ATOL = 1e-9
+# consensus-ADMM at its tuned 50 iterations multiplies a perturbation ~1.4x an iteration: a
+# 1e-15 relative nudge of y moves z by 6.2e-9 in one process (CPU, float64), so the sums over
+# ranks in another order moved it by 6.19e-8 at world 2 (probes/dist_phase_probe.py, measured on
+# one NVIDIA H100 80GB HBM3, 700.00 W); the 50-iteration
+# solve is held within this limit, and a 10-iteration one (nudge 1e-14) within DIST_F64_ATOL
+DIST_CONSENSUS_ATOL = 1e-6
+DIST_SHORT_ITERS = 10
+# float32 at worlds 2 and 4 against one device (the sums over ranks run in another order): the
+# DRUNet consensus solves within PNP_ATOL (the float32-vs-float64 limit of 4 such iterations;
+# read: FISTA 4.1e-7 and 3.6e-7, HQS 0), the sweep's rows within the card-vs-CPU limits
+# (SWEEP_PSNR_DB, SWEEP_RES_*; read: 0, the rows bit-equal), the trainer's losses within
+# DIST_LOSS_RTOL and its parameters' change within DIST_STEP_RTOL of one device's (the norm of the
+# difference over the norm, as precision_readings reads it; the larger of the two read 2.89e-3 at
+# data 2 x space 2, below float32-vs-float64's 8.2e-3 to 1.02e-2). Readings: probes/dist_phase_probe.py,
+# measured on one NVIDIA H100 80GB HBM3, 700.00 W.
+DIST_LOSS_RTOL = 1e-4
+DIST_STEP_RTOL = 1e-2
+
+
+@contextlib.contextmanager
+def timed_collectives(events: list):
+    """Record CUDA events around every collective of ``parallel/mesh.py``
+    (``all_reduce``, ``all_gather``, ``all_to_all``) into ``events``."""
+    import torch
+
+    from pnp_admm_cnc_mri_torch.parallel import mesh as mesh_lib
+
+    names = ("all_reduce", "all_gather", "all_to_all")
+    orig = {n: getattr(mesh_lib, n) for n in names}
+
+    def timed(fn):
+        def call(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            events.append((start, end))
+            return out
+        return call
+
+    for n in names:
+        setattr(mesh_lib, n, timed(orig[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(mesh_lib, n, orig[n])
+
+
+def dist_consensus_setup(dev):
+    """(FISTA's prox, HQS's denoiser, HQS's ladder): seeded full-width DRUNet at
+    TUNED_CONSENSUS_FISTA / _HQS["drunet_gray"], cut to DIST_DEPTH iterations."""
+    import warnings
+
+    import torch
+
+    from pnp_admm_cnc_mri_torch.config import TUNED_CONSENSUS_FISTA, TUNED_CONSENSUS_HQS
+    from pnp_admm_cnc_mri_torch.priors import denoiser
+
+    tf, th = TUNED_CONSENSUS_FISTA["drunet_gray"], TUNED_CONSENSUS_HQS["drunet_gray"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the seeded random init warns
+        d_f = denoiser.build_denoiser("drunet_gray", iter_num=DIST_DEPTH, noise_level_model=tf["nlm"] / 255.0,
+                                      model_sigma1=tf["model_sigma1"], x8=tf["x8"], device=dev)
+        d_h = denoiser.build_denoiser("drunet_gray", iter_num=DIST_DEPTH, noise_level_model=th["nlm"] / 255.0,
+                                      x8=th["x8"], device=dev)
+    prox_f = lambda i, u: torch.clamp(d_f(u, i), 0.0, 1.0)  # noqa: E731
+    return prox_f, d_h, dict(sigma255=th["sigma255"], model_sigma1=49.0, model_sigma2=th["nlm"])
+
+
+def dist_counts():
+    from pnp_admm_cnc_mri_torch.ops import fused_dc, tail_kernels
+
+    return {"l1_tail": tail_kernels.l1_tail.launches, "cnc_tail": tail_kernels.cnc_tail.launches,
+            "fused_iteration": fused_dc.fused_iteration.launches}
+
+
+def dist_reset():
+    import torch
+
+    from pnp_admm_cnc_mri_torch.ops import fused_dc, tail_kernels
+
+    torch.cuda.synchronize()
+    tail_kernels.reset_launches()
+    fused_dc.reset_launches()
+
+
+def _mesh_of(name: str, mesh):
+    """The mesh of an entry named ``<kind>_<n_data>x<n_space>``: ``mesh``
+    itself where the shape matches, else a new one (every rank makes it)."""
+    from pnp_admm_cnc_mri_torch.parallel import mesh as mesh_lib
+
+    n_data, n_space = map(int, name.rsplit("_", 1)[1].split("x"))
+    if (n_data, n_space) == (mesh.shape["data"], mesh.shape["space"]):
+        return mesh
+    return mesh_lib.make_mesh(n_data, n_space, device=mesh.device)
+
+
+def dist_entries(mesh, inp: dict, tmp: str, tdir: str, ddir: str, which: tuple) -> dict:
+    """Run the entry points ``which`` (every rank of ``mesh``'s world calls
+    this with the same ``which``): {name: (result on the host, K1-K3
+    launches, times)}. The times: host seconds to the card's end, CUDA-event
+    ms, and the CUDA-event ms inside the collectives of ``parallel/mesh.py``."""
+    import io
+
+    import torch
+
+    from pnp_admm_cnc_mri_torch import ADMM_L1_DEFAULT
+    from pnp_admm_cnc_mri_torch.cli import sweep
+    from pnp_admm_cnc_mri_torch.data import images, masks, noise
+    from pnp_admm_cnc_mri_torch.models.drunet import UNetRes
+    from pnp_admm_cnc_mri_torch.parallel import consensus, spatial
+    from pnp_admm_cnc_mri_torch.parallel import mesh as mesh_lib
+    from pnp_admm_cnc_mri_torch.train import trainer
+
+    images.DEFAULT_TESTSETS = tdir
+    masks.DEFAULT_DATA_DIR = noise.DEFAULT_DATA_DIR = ddir
+    out = {}
+
+    def run(name, fn):
+        dist_reset()
+        events = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        with timed_collectives(events):
+            start.record()
+            r = fn()
+            end.record()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        ms, coll = start.elapsed_time(end), sum(a.elapsed_time(b) for a, b in events)
+        out[name] = (r, dist_counts(), {"s": secs, "ms": ms, "collective_ms": coll, "collectives": len(events),
+                                        "share": coll / ms})
+
+    for name in which:
+        if name == "consensus":
+            prox_f, d_h, ladder = dist_consensus_setup(mesh.device)
+            run("consensus_admm", lambda: consensus.run_consensus_sharded(
+                inp["ys64"], inp["masks4"], ADMM_L1_DEFAULT, mesh, dtype=torch.float64).cpu())
+            run("consensus_admm_short", lambda: consensus.run_consensus_sharded(
+                inp["ys64"], inp["masks4"], dataclasses.replace(ADMM_L1_DEFAULT, iter_num=DIST_SHORT_ITERS), mesh,
+                dtype=torch.float64).cpu())
+            run("consensus_fista", lambda: consensus.run_consensus_fista_sharded(
+                inp["ys32"], inp["masks4"], DIST_DEPTH, prox_f, mesh).cpu())
+            run("consensus_hqs", lambda: consensus.run_consensus_hqs_sharded(
+                inp["ys32"], inp["masks4"], DIST_DEPTH, d_h, mesh, **ladder).cpu())
+        elif name.startswith("spatial"):
+            m = _mesh_of(name, mesh)
+
+            def solve(m=m):
+                x = spatial.spatial_admm_l1(mesh_lib.shard_batch(inp["y_sp"], m), inp["mask"], ADMM_L1_DEFAULT, m,
+                                            dtype=torch.float64)
+                return mesh_lib.gather_batch(x, m).cpu()
+
+            run(name, solve)
+        elif name.startswith("sweep"):
+            algo = name[len("sweep_"):]
+
+            def solve_grid(algo=algo):
+                buf, split = io.StringIO(), {}
+                with contextlib.redirect_stdout(buf):
+                    check(sweep.main(["--algo", algo, "--testset", "phantoms", "--sigmas",
+                                      ",".join(map(str, SIGMAS)), "--out",
+                                      os.path.join(tmp, f"dist_sweep_{algo}_w{mesh.shape['data']}.jsonl")],
+                                     timings=split) == 0, f"sweep {algo} returned non-zero")
+                lines = buf.getvalue().strip().splitlines()
+                return {"summary": json.loads(lines[-1]) if lines else None, "split": split}
+
+            run(name, solve_grid)
+        elif name.startswith("train"):
+            m = _mesh_of(name, mesh)
+
+            def train(m=m):
+                state, losses = trainer.train_denoiser(
+                    UNetRes(2, 1), inp["patches"], (0.0, 50 / 255), steps=DIST_TRAIN_STEPS,
+                    batch_size=DIST_TRAIN_BATCH, conditioned=True, mesh=m, log_every=1)
+                return {"state": {k: v.cpu() for k, v in state.items()}, "losses": losses}
+
+            run(name, train)
+        else:
+            raise ValueError(f"unknown entry {name!r}")
+    return out
+
+
+def dist_rank(tmp: str, tdir: str, ddir: str, which: tuple) -> None:
+    """One rank of a spawned gloo world on cuda:0: the entry points ``which``
+    on the world's mesh (all ranks on ``data``; the spatial and train
+    entries name their own); writes ``dist_w<world>_rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from pnp_admm_cnc_mri_torch.parallel import mesh as mesh_lib
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    inp = torch.load(os.path.join(tmp, "dist_inputs.pt"), weights_only=False)
+    out = dist_entries(mesh_lib.make_mesh(device=dev), inp, tmp, tdir, ddir, which)
+    for k in [k for k in out if k.startswith("train") and dist.get_rank()]:
+        out[k] = ({"losses": out[k][0]["losses"]}, *out[k][1:])  # the gathered parameters: rank 0's suffice
+    torch.save(out, os.path.join(tmp, f"dist_w{dist.get_world_size()}_rank{dist.get_rank()}.pt"))
+
+
+def phase_distributed(dev, tmp: str, tdir: str, ddir: str, img_np, sweep_res: dict) -> dict:
+    """The multi-device path at world 1 on NCCL, then at worlds 2 and 4 over
+    gloo on this card, each entry point held to its one-device run."""
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pnp_admm_cnc_mri_torch import ADMM_CNC_DEFAULT, ADMM_L1_DEFAULT
+    from pnp_admm_cnc_mri_torch.cli import multihost
+    from pnp_admm_cnc_mri_torch.data import images, masks, noise
+    from pnp_admm_cnc_mri_torch.models.drunet import UNetRes
+    from pnp_admm_cnc_mri_torch.ops import tail_kernels
+    from pnp_admm_cnc_mri_torch.parallel import consensus
+    from pnp_admm_cnc_mri_torch.parallel import mesh as mesh_lib
+    from pnp_admm_cnc_mri_torch.solvers import admm
+    from pnp_admm_cnc_mri_torch.train import data as data_mod, trainer
+
+    res = {"errors": {}, "launches": {}, "times": {}, "summaries": {}, "train_readings": {}}
+    # inputs: one phantom through the experiments phase's three masks and random_mask(0.3, seed 3)
+    # with the main noise; 4 phantoms through the first mask for the spatial solve; the trainer's
+    # 64 x 64 patches of 16 phantoms
+    masks4 = np.stack([masks.random_mask((H, W), fraction=0.3, seed=1), masks.radial_mask((H, W)),
+                       masks.cartesian_mask((H, W), fraction=0.3, seed=1),
+                       masks.random_mask((H, W), fraction=0.3, seed=3)]).astype(np.float64)
+    nz = noise.synth_noise((H, W), std=3.0, seed=2)
+    ys = np.fft.fft2(img_np[0].astype(np.float64)) * masks4 + nz
+    inp = {"ys64": torch.from_numpy(ys), "ys32": torch.from_numpy(ys.astype(np.complex64)),
+           "masks4": torch.from_numpy(masks4),
+           "y_sp": torch.from_numpy(np.fft.fft2(img_np[:DIST_SPATIAL_B].astype(np.float64)) * masks4[0] + nz),
+           "mask": torch.from_numpy(masks4[0]),
+           "patches": data_mod.extract_patches(list(img_np[:16]), patch=DIST_TRAIN_PATCH, stride=DIST_TRAIN_PATCH)}
+    torch.save(inp, os.path.join(tmp, "dist_inputs.pt"))
+
+    # -- the one-device runs ---------------------------------------------------------
+    prox_f, d_h, ladder = dist_consensus_setup(dev)
+    ys32, m4 = inp["ys32"].to(dev), inp["masks4"].to(dev)
+    short = dataclasses.replace(ADMM_L1_DEFAULT, iter_num=DIST_SHORT_ITERS)
+    ref = {
+        "consensus_admm": consensus.run_consensus(inp["ys64"], inp["masks4"], ADMM_L1_DEFAULT, dtype=torch.float64,
+                                                  device=dev)[0].cpu(),
+        "consensus_admm_short": consensus.run_consensus(inp["ys64"], inp["masks4"], short, dtype=torch.float64,
+                                                        device=dev)[0].cpu(),
+        "consensus_fista": consensus.run_consensus_fista(ys32, m4, DIST_DEPTH, prox_f).cpu(),
+        "consensus_hqs": consensus.run_consensus_hqs(ys32, m4, DIST_DEPTH, d_h, **ladder).cpu(),
+        "spatial": admm.admm_l1(inp["y_sp"], inp["mask"], ADMM_L1_DEFAULT, dtype=torch.float64,
+                                use_rfft=False, device=dev)[0].x.cpu(),
+    }
+    nudged = {it: consensus.run_consensus(inp["ys64"] * (1 + 1e-15), inp["masks4"], cfg, dtype=torch.float64,
+                                          device=dev)[0].cpu() for it, cfg in ((ITERS, ADMM_L1_DEFAULT),
+                                                                               (DIST_SHORT_ITERS, short))}
+    res["consensus_admm_nudge_1e-15"] = {
+        it: float((nudged[it] - ref["consensus_admm" if it == ITERS else "consensus_admm_short"]).abs().max())
+        for it in nudged}
+    del ys32, m4, nudged
+    train_kw = dict(batch_size=DIST_TRAIN_BATCH, conditioned=True, device=dev)
+    start = {k: v.cpu().double() for k, v in trainer.train_denoiser(UNetRes(2, 1), inp["patches"], (0.0, 50 / 255),
+                                                                     steps=0, **train_kw)[0].items()}
+    st, ls = trainer.train_denoiser(UNetRes(2, 1), inp["patches"], (0.0, 50 / 255), steps=DIST_TRAIN_STEPS,
+                                    log_every=1, **train_kw)
+    ref["train"] = {"state": {k: v.cpu() for k, v in st.items()}, "losses": ls}
+    del st
+    sweep_rows = {}
+    for algo in ("admm_l1", "admm_cnc"):
+        with open(os.path.join(tmp, f"sweep_{algo}.jsonl")) as f:
+            sweep_rows[algo] = [json.loads(ln) for ln in f]
+
+    def change_rel(state) -> float:
+        """The norm of the difference of the parameters' change from one
+        device's, over the norm of one device's change."""
+        d0 = {k: ref["train"]["state"][k].double() - start[k] for k in start}
+        norm = lambda d: math.sqrt(sum(float((v * v).sum()) for v in d.values()))  # noqa: E731
+        return norm({k: state[k].double() - start[k] - d0[k] for k in d0}) / norm(d0)
+
+    fails = []
+
+    def want(cond: bool, msg: str) -> None:
+        if not cond:
+            fails.append(msg)
+
+    def held(name, got, world) -> float:
+        """Entry ``name``'s result at ``world`` against its one-device run
+        (a miss goes to ``fails``, reported with every error at the end); its error."""
+        if name.startswith("spatial"):
+            err = float((got - ref["spatial"]).abs().max())
+            want(got.shape == ref["spatial"].shape and err < DIST_F64_ATOL,
+                 f"{name} at world {world} vs admm_l1 in float64: {err}")
+            return err
+        if name.startswith("consensus"):
+            err = float((got.double() - ref[name].double()).abs().max())
+            lim = 0.0 if world == 1 else {"consensus_admm": DIST_CONSENSUS_ATOL,
+                                          "consensus_admm_short": DIST_F64_ATOL}.get(name, PNP_ATOL)
+            want(got.shape == (H, W) and err <= lim, f"{name} at world {world} vs one device: {err} (limit {lim})")
+            return err
+        if name.startswith("sweep"):
+            algo = name[len("sweep_"):]
+            with open(os.path.join(tmp, f"dist_sweep_{algo}_w{world}.jsonl")) as f:
+                rows = [json.loads(ln) for ln in f]
+            want_rows = sweep_rows[algo]
+            want([r_["scenario"] for r_ in rows] == [r_["scenario"] for r_ in want_rows],
+                 f"{name} at world {world}: {len(rows)} rows, not the one-device run's labels in order")
+            dp = max(abs(a["psnr"] - b["psnr"]) for a, b in zip(rows, want_rows))
+            dr = max(abs(a["residual"] - b["residual"]) for a, b in zip(rows, want_rows))
+            ok = all(abs(a["residual"] - b["residual"]) <= SWEEP_RES_ATOL + SWEEP_RES_RTOL * abs(b["residual"])
+                     for a, b in zip(rows, want_rows))
+            want(dp < SWEEP_PSNR_DB and ok and (world > 1 or dp == dr == 0.0),
+                 f"{name} at world {world} vs one device: PSNR {dp} dB, residual {dr}")
+            summ = got["summary"]
+            want(summ is not None and summ["devices"] == world and summ["scenarios"] == len(want_rows)
+                 and (world > 1 or summ["converged_fraction"] == sweep_res["summary"][algo]["converged_fraction"]),
+                 f"{name} at world {world}: summary {summ}")
+            res["summaries"][f"{name}_w{world}"] = summ
+            return dp
+        steps_, losses = [i for i, _ in got["losses"]], [v for _, v in got["losses"]]
+        want_l = [v for _, v in ref["train"]["losses"]]
+        want(steps_ == [i for i, _ in ref["train"]["losses"]], f"{name}: logged steps {steps_}")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_l))
+        rel = change_rel(got["state"]) if "state" in got else 0.0
+        res["train_readings"][f"w{world}"] = {"loss_rel": max(loss_err, res["train_readings"].get(
+            f"w{world}", {}).get("loss_rel", 0.0)), "change_rel": max(rel, res["train_readings"].get(
+            f"w{world}", {}).get("change_rel", 0.0))}
+        if world == 1:
+            want(losses == want_l and all(torch.equal(got["state"][k], ref["train"]["state"][k]) for k in start),
+                 f"{name} at world 1 differs from one device: losses {losses} vs {want_l}, change {rel}")
+        want(loss_err < DIST_LOSS_RTOL and rel < DIST_STEP_RTOL,
+             f"{name} at world {world}: losses {loss_err} (limit {DIST_LOSS_RTOL}), parameters' change {rel} "
+             f"(limit {DIST_STEP_RTOL})")
+        return max(loss_err, rel)
+
+    def record(world, out, rank=0):
+        for k, (got, launches, times) in out.items():
+            if not (rank and k.startswith("sweep")):  # rank 0 alone writes the rows and the summary
+                errs = res["errors"].setdefault(f"w{world}", {})
+                errs[k] = max(errs.get(k, 0.0), held(k, got, world))
+            res["launches"].setdefault(f"w{world}", {}).setdefault(k, []).append(launches)
+            res["times"].setdefault(f"w{world}", {}).setdefault(k, []).append(times)
+
+    # -- world 1: NCCL, this process -------------------------------------------------
+    mesh_lib.init_process_group(dev, f"file://{tmp}/dist_store_w1", 0, 1, DIST_TIMEOUT_S)
+    try:
+        mesh = mesh_lib.make_mesh(device=dev)
+        check(mesh.distributed and dist.get_backend() == "nccl", "world 1 is not an NCCL group")
+        record(1, dist_entries(mesh, inp, tmp, tdir, ddir,
+                               ("consensus", "spatial_1x1", "sweep_admm_l1", "sweep_admm_cnc", "train_1x1")))
+        # multihost.worker in this process at its defaults, scaled to 512 scenarios
+        args = multihost._parser().parse_args(["--testset", "phantoms", "--scenarios_per_device",
+                                               str(DIST_MULTIHOST_SCENARIOS)])
+        buf, events = io.StringIO(), []
+        dist_reset()
+        with timed_collectives(events), contextlib.redirect_stdout(buf):
+            rc, mh_ms = event_ms(lambda: multihost.worker(args))
+        check(rc == 0, "multihost.worker returned non-zero")
+        res["launches"]["w1"]["multihost"] = [dist_counts()]
+        coll = sum(a.elapsed_time(b) for a, b in events)
+        res["times"]["w1"]["multihost"] = [{"ms": mh_ms, "collective_ms": coll, "collectives": len(events),
+                                            "share": coll / mh_ms}]
+        mh = res["summaries"]["multihost_w1"] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    finally:
+        dist.destroy_process_group()
+    imgs01, _, _ = images.load_testset(os.path.join(tdir, "phantoms"))
+    mask_q = masks.load_mask("Q_Random30")
+    idx = np.arange(DIST_MULTIHOST_SCENARIOS) % imgs01.shape[0]
+    y_mh = (np.fft.fft2(imgs01[idx], axes=(-2, -1)) * mask_q + noise.load_noise()).astype(np.complex64)
+    fin, r_mh = admm.admm_l1(y_mh, mask_q.astype(np.float32), dataclasses.replace(ADMM_L1_DEFAULT,
+                                                                                  iter_num=args.iter_num),
+                             collect_residuals=True)
+    rel = r_mh[-1] / (torch.sqrt(torch.sum(fin.x**2, dim=(-2, -1))) + 1e-12)
+    check(mh["mean_rel_residual"] == float(torch.mean(rel)) and mh["max_rel_residual"] == float(torch.max(rel))
+          and mh["global_devices"] == 1 and mh["scenarios"] == DIST_MULTIHOST_SCENARIOS,
+          f"multihost at world 1 vs one device: {mh} vs mean {float(torch.mean(rel))} max {float(torch.max(rel))}")
+    del y_mh, fin, r_mh, rel
+    w1 = {k: v[0] for k, v in res["launches"]["w1"].items()}
+    k1_want = {"consensus_admm": 0, "consensus_admm_short": 0, "consensus_fista": 0, "consensus_hqs": 0,
+               "train_1x1": 0, "spatial_1x1": ITERS, "sweep_admm_l1": ITERS, "multihost": 2 * args.iter_num}
+    check(set(w1) == set(k1_want) | {"sweep_admm_cnc"} and all(w1[k]["l1_tail"] == n for k, n in k1_want.items())
+          and w1["sweep_admm_cnc"]["cnc_tail"] == ITERS and sum(v["cnc_tail"] for v in w1.values()) == ITERS
+          and all(v["fused_iteration"] == 0 for v in w1.values()), f"world 1 launches {json.dumps(w1)}")
+    log(f"distributed: world 1 (NCCL, this process) against one device: errors {json.dumps(res['errors']['w1'])} "
+        f"(0 is bit for bit; the spatial solve's FFT runs as two 1-D passes); K1-K3 launches {json.dumps(w1)}")
+
+    # the one-device runs again, warm, timed beside the world-1 entry points (CUDA events, ms)
+    ys32, m4 = inp["ys32"].to(dev), inp["masks4"].to(dev)
+    res["one_device_ms"] = {name: event_ms(fn)[1] for name, fn in {
+        "consensus_admm": lambda: consensus.run_consensus(inp["ys64"], inp["masks4"], ADMM_L1_DEFAULT,
+                                                          dtype=torch.float64, device=dev),
+        "consensus_fista": lambda: consensus.run_consensus_fista(ys32, m4, DIST_DEPTH, prox_f),
+        "consensus_hqs": lambda: consensus.run_consensus_hqs(ys32, m4, DIST_DEPTH, d_h, **ladder),
+        "spatial (admm_l1, use_rfft=False)": lambda: admm.admm_l1(inp["y_sp"], inp["mask"], ADMM_L1_DEFAULT,
+                                                                  dtype=torch.float64, use_rfft=False, device=dev),
+        "train": lambda: trainer.train_denoiser(UNetRes(2, 1), inp["patches"], (0.0, 50 / 255),
+                                                steps=DIST_TRAIN_STEPS, log_every=1, **train_kw),
+    }.items()}
+    del ys32, m4
+
+    # -- worlds 2 and 4: gloo, every rank on this card -----------------------------------
+    torch.cuda.empty_cache()
+    res["spawned_s"] = {}
+    for world, which in ((2, ("consensus", "spatial_1x2", "sweep_admm_l1", "sweep_admm_cnc")),
+                         (4, ("consensus", "spatial_1x4", "spatial_2x2", "train_2x2"))):
+        t = time.perf_counter()
+        mesh_lib.launch_local(dist_rank, world, (tmp, tdir, ddir, which), timeout_s=DIST_TIMEOUT_S)
+        res["spawned_s"][world] = time.perf_counter() - t
+        for r in range(world):
+            record(world, torch.load(os.path.join(tmp, f"dist_w{world}_rank{r}.pt"), weights_only=False), r)
+    for world, name, k1 in ((2, "spatial_1x2", ITERS), (2, "sweep_admm_l1", ITERS), (4, "spatial_1x4", ITERS),
+                            (4, "spatial_2x2", ITERS)):
+        got = [c["l1_tail"] for c in res["launches"][f"w{world}"][name]]
+        check(got == [k1] * world, f"{name} at world {world}: K1 {got}")
+    check(res["launches"]["w2"]["sweep_admm_cnc"] == [{"l1_tail": 0, "cnc_tail": ITERS, "fused_iteration": 0}] * 2,
+          f"sweep_admm_cnc at world 2: {res['launches']['w2']['sweep_admm_cnc']}")
+    # K1 and K2 against their plain versions at the shard shapes
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    half = B * len(SIGMAS) * 3 // 2
+    shard_shapes = [("l1_tail", (DIST_SPATIAL_B, H // 2, W), torch.float64),
+                    ("l1_tail", (DIST_SPATIAL_B, H // 4, W), torch.float64),
+                    ("l1_tail", (DIST_SPATIAL_B // 2, H // 2, W), torch.float64),
+                    ("l1_tail", (half, H, W), torch.float32), ("cnc_tail", (half, H, W), torch.float32)]
+    c = ADMM_L1_DEFAULT.rho * ADMM_L1_DEFAULT.lam
+    cnc = (ADMM_CNC_DEFAULT.alpha, ADMM_CNC_DEFAULT.rho, ADMM_CNC_DEFAULT.lam, ADMM_CNC_DEFAULT.b)
+    res["kernels_at_shards"] = {}
+    for name, shape, dt in shard_shapes:
+        ops = [torch.randn(shape, generator=gen, device=dev, dtype=dt) for _ in range(3)]
+        args_k = (*ops, c) if name == "l1_tail" else (*ops, *cnc)
+        res["kernels_at_shards"][f"{name} {'x'.join(map(str, shape))} {str(dt)[6:]}"] = same(
+            getattr(tail_kernels, name)(*args_k), getattr(tail_kernels, name + "_plain")(*args_k),
+            f"{name} at {shape}")
+        del ops, args_k
+    torch.cuda.empty_cache()
+    log(f"distributed: worlds 2 and 4 over gloo, all ranks on this card, held to one device: errors "
+        f"{json.dumps(res['errors'])} (float64 limit {DIST_F64_ATOL}; DRUNet consensus {PNP_ATOL}; the sweep's "
+        f"PSNR {SWEEP_PSNR_DB} dB and residual {SWEEP_RES_ATOL} + {SWEEP_RES_RTOL} |r|; the trainer's losses "
+        f"{DIST_LOSS_RTOL} relative and parameters' change {DIST_STEP_RTOL}; consensus-ADMM at {ITERS} "
+        f"iterations {DIST_CONSENSUS_ATOL}, where one device moves by "
+        f"{json.dumps(res['consensus_admm_nudge_1e-15'])} under a 1e-15 relative nudge of y, by iterations); "
+        f"the trainer's loss and change readings {json.dumps(res['train_readings'])}; "
+        f"failed: {fails or 'none'}; K1-K3 launches by rank "
+        f"{json.dumps({w: res['launches'][w] for w in ('w2', 'w4')})}; K1/K2 equal their plain versions at the "
+        f"shard shapes {json.dumps(res['kernels_at_shards'])}; summaries {json.dumps(res['summaries'])}")
+    check(not fails, "distributed: " + "; ".join(fails))
+    log(f"timing distributed (CUDA events over each entry point, ms, the part inside collectives, and host s; "
+        f"gloo on one shared card measures nothing of multi-GPU scaling): {json.dumps(res['times'])}; one "
+        f"device, warm, after world 1 (ms): {json.dumps(res['one_device_ms'])}; one "
+        f"device's sweep wall_s admm_l1 {sweep_res['summary']['admm_l1']['wall_s']}, admm_cnc "
+        f"{sweep_res['summary']['admm_cnc']['wall_s']}; spawned worlds, spawn to join (s) "
+        f"{json.dumps(res['spawned_s'])}")
+    return res
+
+
 def main() -> dict:
     import numpy as np
     import torch
@@ -2170,7 +2651,7 @@ def main() -> dict:
         rates.update({f"run_{k}": v for k, v in phase_experiments(dev, tmp, tdir, ddir).items()})
         phase("experiments", t)
         t = time.perf_counter()
-        phase_sweep(dev, tmp, tdir, ddir, y, mask)
+        sweep_res = phase_sweep(dev, tmp, tdir, ddir, y, mask)
         phase("sweep", t)
         t = time.perf_counter()
         rates["train"] = phase_train(dev, tmp, tdir)
@@ -2178,6 +2659,9 @@ def main() -> dict:
         t = time.perf_counter()
         rates["cli"] = phase_cli(dev, tmp, tdir, ddir)
         phase("cli", t)
+        t = time.perf_counter()
+        dist_res = phase_distributed(dev, tmp, tdir, ddir, img_np, sweep_res)
+        phase("distributed", t)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2205,6 +2689,7 @@ def main() -> dict:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
+            "distributed_launches": {k: v[0][name] for k, v in dist_res["launches"]["w1"].items()},
         })
     # the fused iteration at the path's shape, from the scenario's initial state
     for label, design in (("admm_l1_fused_kernel", None), ("admm_l1_fused_kernel_strips", "strips")):
@@ -2255,6 +2740,7 @@ def main() -> dict:
             "ms": step_ms[design], "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
             "bound_by": "bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
             "library_ms": None,
+            "distributed_launches": {k: v[0]["fused_iteration"] for k, v in dist_res["launches"]["w1"].items()},
         })
     log(f"timing: {json.dumps(rates)}")
     phase("timing", t)

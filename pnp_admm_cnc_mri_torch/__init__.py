@@ -15,7 +15,10 @@ super-resolution) run on the SR operators of ``ops/sisr.py`` and
 (``cli/experiments.py``, ``cli/sweep.py``) load testsets, masks and noise
 from files (``data/images.py``, ``data/masks.py``), score and log in the
 reference's format (``utils/logger.py``), and ``utils/checkpoint.py``
-saves and resumes every solver family.
+saves and resumes every solver family. ``parallel/`` runs them over
+several processes with torch.distributed (one process a device): the
+sharded consensus solvers, the spatially split ADMM solve, the sweep
+split over the ranks, ``cli/multihost.py`` and the dp x tp trainer.
 """
 
 from pnp_admm_cnc_mri_torch.config import (  # noqa: F401

@@ -1,14 +1,17 @@
-"""Scenario-grid sweep: images x masks x noise levels, solved on one device.
+"""Scenario-grid sweep: images x masks x noise levels, split over the ranks.
 
 Port of the JAX package's ``cli/sweep.py`` (BASELINE.json config 5: a
-512-image x 3-mask x noise-level grid). It builds the whole scenario grid
-on the host, solves every scenario in one batched call on one device (the
-CUDA card, or the CPU with ``--cpu``), scores it there and reports the
-converged fraction of the final relative residuals. The JAX package shards
-the grid over a device mesh; the sharded form is not ported.
+512-image x 3-mask x noise-level grid). The grid is padded to a multiple of
+the mesh's ``data`` axis (``parallel/mesh.py``), and each rank builds,
+solves and scores only its own rows, in one batched call on its device (the
+CUDA card, or the CPU with ``--cpu``). Rank 0 gathers the PSNRs and the
+final relative residuals, drops the padding, prints the summary with the
+converged fraction and writes the records. Without a launched world it is
+one rank on one device.
 
     python -m pnp_admm_cnc_mri_torch.cli.sweep --algo admm_l1 \\
         --testset set --masks all --sigmas 1,3,5 --tol 1e-3
+    torchrun --nproc_per_node N -m pnp_admm_cnc_mri_torch.cli.sweep ...
 
 The testset, masks and noise come from ``data.images.DEFAULT_TESTSETS``
 and ``data.masks`` / ``data.noise``'s ``DEFAULT_DATA_DIR``
@@ -29,34 +32,51 @@ import numpy as np
 CHUNK = 16  # images a step of build_grid: bounds its complex128 temporaries to a few MB
 
 
-def build_grid(imgs01, masks_dict, sigma_scales, base_noise):
+def build_grid(imgs01, masks_dict, sigma_scales, base_noise, rows=None):
     """Cartesian scenario grid -> ys (S, H, W) complex64, masks (S, H, W)
     float32, truth_idx (S,) and labels, S = n_sigmas * n_masks * n_images,
-    sigma outermost and image innermost.
+    sigma outermost and image innermost. ``rows`` (indices into that grid)
+    builds only those scenarios, in that order.
 
     The grid is filled ``CHUNK`` images at a time: their FFT (the same per
     image as the batch's), then for each (sigma, mask) block ``fimg * mask
     + base_noise * scale`` in complex128, cast into the preallocated
     complex64 grid. These are the JAX package's elementwise operations in
-    its order, so the grid is bit-equal to its scenario-at-a-time list,
+    its order, so any row is bit-equal to its scenario-at-a-time list,
     without its complex128 copy of the whole grid.
     """
     n = imgs01.shape[0]
     mask_items = list(masks_dict.items())
     blocks = [(scale, mname, mask) for scale in sigma_scales for mname, mask in mask_items]
-    ys = np.empty((len(blocks) * n, *imgs01.shape[-2:]), dtype=np.complex64)
+    rows = np.arange(len(blocks) * n) if rows is None else np.asarray(rows)
+    block_of, img_of = rows // n, rows % n
+    ys = np.empty((len(rows), *imgs01.shape[-2:]), dtype=np.complex64)
     ms = np.empty(ys.shape, dtype=np.float32)
     noise_at = {scale: base_noise * scale for scale in sigma_scales}
     for c in range(0, n, CHUNK):
+        in_chunk = (img_of >= c) & (img_of < c + CHUNK)
+        if not in_chunk.any():
+            continue
         fimg = np.fft.fft2(imgs01[c:c + CHUNK], axes=(-2, -1))
         for b, (scale, _, mask) in enumerate(blocks):
-            part = np.multiply(fimg, mask)
-            part += noise_at[scale]
-            ys[b * n + c:b * n + c + len(fimg)] = part
+            sel = np.flatnonzero(in_chunk & (block_of == b))
+            if len(sel):
+                src = img_of[sel] - c
+                if np.array_equal(src, np.arange(src[0], src[0] + len(src))):
+                    src = slice(src[0], src[0] + len(src))  # a view, no copy
+                part = np.multiply(fimg[src], mask)
+                part += noise_at[scale]
+                ys[sel] = part
     for b, (_, _, mask) in enumerate(blocks):
-        ms[b * n:(b + 1) * n] = mask
-    labels = [f"img{ii}_{mname}_s{scale}" for scale, mname, _ in blocks for ii in range(n)]
-    return ys, ms, np.tile(np.arange(n), len(blocks)), labels
+        ms[block_of == b] = mask
+    return ys, ms, img_of, grid_labels(list(masks_dict), sigma_scales, n, rows)
+
+
+def grid_labels(mask_names, sigma_scales, n_images: int, rows=None) -> list:
+    """``build_grid``'s scenario labels, ``img{i}_{mask}_s{scale}``."""
+    blocks = [(scale, mname) for scale in sigma_scales for mname in mask_names]
+    rows = range(len(blocks) * n_images) if rows is None else rows
+    return [f"img{r % n_images}_{blocks[r // n_images][1]}_s{blocks[r // n_images][0]}" for r in rows]
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -143,25 +163,33 @@ def _solver(args, device):
 
 
 def main(argv=None, timings: dict | None = None) -> int:
-    """Run the sweep of ``argv`` (``sys.argv[1:]`` when None): print the
-    one-line JSON summary and, with ``--out``, append one JSONL record a
-    scenario. ``timings``, when given, receives the split of the run in
-    seconds: ``load`` (testset, masks, noise), ``grid`` (``build_grid``),
-    ``h2d`` (y and the masks to the device), ``solve`` (the summary's
-    ``wall_s``: the batched solve and the relative residuals, to their end
-    on the device), ``score`` (PSNR and the converged fraction) and
+    """Run the sweep of ``argv`` (``sys.argv[1:]`` when None): rank 0 prints
+    the one-line JSON summary and, with ``--out``, appends one JSONL record
+    a scenario. Launched by torchrun, the process joins the world first
+    (``mesh.init_from_env``); in a world already initialized it takes the
+    world as it is. ``timings``, when given, receives this rank's split of
+    the run in seconds: ``load`` (testset, masks, noise), ``grid``
+    (``build_grid`` of its rows), ``h2d`` (y and the masks to the device),
+    ``solve`` (the summary's ``wall_s``: the batched solve and the relative
+    residuals, to their end on the device, and their gather over the
+    ranks), ``score`` (PSNR, its gather and the converged fraction) and
     ``records``."""
     args = _parser().parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
     from pnp_admm_cnc_mri_torch import config as cfg_mod
     from pnp_admm_cnc_mri_torch.data import images, masks as masks_mod, noise as noise_mod
     from pnp_admm_cnc_mri_torch.ops import metrics as metrics_mod
-    from pnp_admm_cnc_mri_torch.solvers.admm import resolve_device
+    from pnp_admm_cnc_mri_torch.parallel import mesh as mesh_lib
     from pnp_admm_cnc_mri_torch.utils import logger as logger_mod
 
-    device = resolve_device("cpu" if args.cpu else None)
+    device = mesh_lib.mesh_device("cpu" if args.cpu else None)
+    if mesh_lib.launched() and not dist.is_initialized():
+        mesh_lib.init_from_env(device)
+    mesh = mesh_lib.make_mesh(device=device)
+    n_dev = mesh.shape["data"]
     split = {}
 
     def sync():
@@ -177,12 +205,14 @@ def main(argv=None, timings: dict | None = None) -> int:
     split["load"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    ys, ms, idxs, labels = build_grid(imgs01, masks_dict, sigma_scales, base_noise)
-    if args.repeat > 1:
-        ys = np.concatenate([ys] * args.repeat)
-        ms = np.concatenate([ms] * args.repeat)
-        idxs = np.concatenate([idxs] * args.repeat)
-        labels = labels * args.repeat
+    # the grid repeated --repeat times, padded to a multiple of the ranks
+    # (JAX's pad_to_multiple: index i % n); this rank's rows of it
+    n_grid = len(sigma_scales) * len(masks_dict) * imgs01.shape[0]
+    true_n = n_grid * args.repeat
+    padded, _ = mesh_lib.pad_to_multiple(np.arange(true_n), n_dev)
+    per = len(padded) // n_dev
+    mine = padded[mesh.coords["data"] * per:(mesh.coords["data"] + 1) * per] % n_grid
+    ys, ms, idxs, _ = build_grid(imgs01, masks_dict, sigma_scales, base_noise, rows=mine)
     split["grid"] = time.perf_counter() - t
     run, iters = _solver(args, device)
 
@@ -196,35 +226,36 @@ def main(argv=None, timings: dict | None = None) -> int:
     x, res = run(y_d, m_d)
     # per-scenario relative residual at the last iteration
     rel = res[-1] / (torch.sqrt(torch.sum(x**2, dim=(-2, -1))) + 1e-12)
+    rel = mesh_lib.gather_batch(rel, mesh)[:true_n]
     sync()
     dt = time.perf_counter() - t0
     split["solve"] = dt
 
     t = time.perf_counter()
     truth_d = torch.as_tensor(truth, device=device)[torch.as_tensor(idxs, device=device)]
-    psnr = metrics_mod.psnr(x * 255.0, truth_d).cpu().numpy()
+    psnr = mesh_lib.gather_batch(metrics_mod.psnr(x * 255.0, truth_d), mesh)[:true_n].cpu().numpy()
     rel = rel.cpu().numpy()
     converged = float((rel < args.tol).mean())
     split["score"] = time.perf_counter() - t
-    n = len(labels)
-    summary = {
-        "scenarios": n,
-        "devices": 1,
-        "iters": iters,
-        "wall_s": round(dt, 3),
-        "scenario_iters_per_s": round(n * iters / dt, 1),
-        "avg_psnr": round(float(psnr.mean()), 3),
-        "converged_fraction": round(converged, 4),
-        "tol": args.tol,
-    }
-    print(json.dumps(summary))
     t = time.perf_counter()
-    if args.out:
-        # the sweep's argv on every row: a row is reproducible from its own record
-        prov = list(argv) if argv is not None else sys.argv[1:]
-        for lbl, p_, r_ in zip(labels, psnr, rel):
-            logger_mod.append_record(args.out, {"scenario": lbl, "psnr": float(p_), "residual": float(r_),
-                                                "argv": prov})
+    if mesh.coords["data"] == 0:
+        print(json.dumps({
+            "scenarios": true_n,
+            "devices": n_dev,
+            "iters": iters,
+            "wall_s": round(dt, 3),
+            "scenario_iters_per_s": round(true_n * iters / dt, 1),
+            "avg_psnr": round(float(psnr.mean()), 3),
+            "converged_fraction": round(converged, 4),
+            "tol": args.tol,
+        }))
+        if args.out:
+            # the sweep's argv on every row: a row is reproducible from its own record
+            prov = list(argv) if argv is not None else sys.argv[1:]
+            labels = grid_labels(list(masks_dict), sigma_scales, imgs01.shape[0]) * args.repeat
+            for lbl, p_, r_ in zip(labels, psnr, rel):
+                logger_mod.append_record(args.out, {"scenario": lbl, "psnr": float(p_), "residual": float(r_),
+                                                    "argv": prov})
     split["records"] = time.perf_counter() - t
     if timings is not None:
         timings.update(split)

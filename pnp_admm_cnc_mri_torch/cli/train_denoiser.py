@@ -9,8 +9,12 @@ It trains on the CUDA card, or on the CPU with ``--cpu`` (without a card
 and without ``--cpu`` it stops). The npz holds the JAX package's Flax keys
 (``models/convert.save_npz``), so it loads into the PnP pipelines of both
 packages: here ``priors/denoiser.build_denoiser(name, weights=...)``,
-there ``convert.load_npz``. ``--mesh`` (the sharded trainer) waits for the
-port's ``torch.distributed`` slice.
+there ``convert.load_npz``. ``--mesh`` trains data-parallel over the
+ranks of a launched world (``torchrun --nproc_per_node N -m
+pnp_admm_cnc_mri_torch.cli.train_denoiser --mesh ...``; ``train_denoiser(mesh=)``
+of ``train/trainer.py``), where rank 0 alone writes the npz and prints;
+without a world it is the 1 x 1 mesh, the same run as without ``--mesh``.
+As in the JAX CLI, ``--ondevice`` and ``--synth`` take no mesh.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true", help="train on the CPU (default: the CUDA card)")
     p.add_argument("--nc", type=int, default=64)
     p.add_argument("--nb", type=int, default=None)
-    p.add_argument("--mesh", action="store_true", help="shard over all devices (not ported yet: raises)")
+    p.add_argument("--mesh", action="store_true", help="shard over all ranks of the world (torchrun)")
     p.add_argument("--lr_decay", choices=["cosine"], default=None, help="anneal the learning rate over the run")
     p.add_argument("--ckpt_every", type=int, default=0, help="save the npz every N steps")
     p.add_argument("--bundle", action="store_true",
@@ -134,19 +138,24 @@ def main(argv=None, timings=None) -> int:
     synchronized at each edge. ``--bundle`` runs fill nothing."""
     t0 = time.perf_counter()
     args = _parser().parse_args(argv)
-    if args.mesh:
-        from pnp_admm_cnc_mri_torch.train.trainer import MESH_TODO
-
-        raise NotImplementedError(MESH_TODO)
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from pnp_admm_cnc_mri_torch.models import convert
     from pnp_admm_cnc_mri_torch.solvers.admm import resolve_device
     from pnp_admm_cnc_mri_torch.train import trainer
 
     device = resolve_device("cpu" if args.cpu else None)
+    mesh = None
+    if args.mesh:
+        from pnp_admm_cnc_mri_torch.parallel import mesh as mesh_lib
+
+        if mesh_lib.launched() and not dist.is_initialized():
+            device = mesh_lib.init_from_env("cpu" if args.cpu else None)
+        mesh = mesh_lib.make_mesh(device=device)
+    lead = not dist.is_initialized() or dist.get_rank() == 0  # the rank that writes and prints
     split = {"synthesis_s": 0.0, "checkpoint_s": 0.0}
 
     def sync_clock() -> float:
@@ -161,8 +170,16 @@ def main(argv=None, timings=None) -> int:
         sigma = (sigma, args.sigma_max / 255.0)
     cfg = trainer.TrainConfig(learning_rate=args.lr, loss="l1" if args.model == "fdncnn" else "l2",
                               lr_decay=args.lr_decay)
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    save = convert.save_npz
+    if lead:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+
+    def save(p, path):
+        if lead:
+            convert.save_npz(p, path)
+
+    def report(obj):
+        if lead:
+            print(json.dumps(obj), flush=True)
 
     ckpt_cb = None
     if args.ckpt_every:
@@ -170,7 +187,7 @@ def main(argv=None, timings=None) -> int:
             t = sync_clock()
             save(p, _path)
             split["checkpoint_s"] += time.perf_counter() - t
-            print(json.dumps({"ckpt": _path, "step": step}), flush=True)
+            report({"ckpt": _path, "step": step})
 
     if args.bundle:
         if args.model != "ircnn":
@@ -188,7 +205,7 @@ def main(argv=None, timings=None) -> int:
                       ckpt_every=ckpt_every, device=device)
             if args.ondevice:
                 return trainer.train_denoiser_ondevice(model, patches, sig, scan_steps=args.scan_steps, **kw)
-            return trainer.train_denoiser(model, patches, sig, **kw)
+            return trainer.train_denoiser(model, patches, sig, mesh=mesh, **kw)
 
         def stacked(states):
             return {k: torch.stack([s[k].detach().cpu() for s in states]) for k in states[0]}
@@ -196,24 +213,24 @@ def main(argv=None, timings=None) -> int:
         def save_bundle_ckpt(step, p, _path=args.out):
             # the one trained state in all 25 bins, so the file always loads as a bundle
             save(stacked([p] * 25), _path)
-            print(json.dumps({"ckpt": _path, "step": step, "bin": center}), flush=True)
+            report({"ckpt": _path, "step": step, "bin": center})
 
         p_c, losses = run_train((2 * center + 1) / 255.0, args.steps,
                                 ckpt_cb=save_bundle_ckpt if args.ckpt_every else None, ckpt_every=args.ckpt_every)
         bins[center] = p_c
-        print(json.dumps({"bin": center, "losses": losses[-2:]}), flush=True)
+        report({"bin": center, "losses": losses[-2:]})
         for direction in (-1, 1):
             prev = p_c
             b = center + direction
             while 0 <= b <= 24:
                 prev, losses = run_train((2 * b + 1) / 255.0, args.bundle_steps, params=prev, seed=b)
                 bins[b] = prev
-                print(json.dumps({"bin": b, "losses": losses[-1:]}), flush=True)
+                report({"bin": b, "losses": losses[-1:]})
                 # the partial bundle: a missing bin takes its nearest trained neighbour's weights
                 full = [bins.get(i) or bins[min(bins, key=lambda k: abs(k - i))] for i in range(25)]
                 save(stacked(full), args.out)
                 b += direction
-        print(json.dumps({"out": args.out, "bins": sorted(bins), "patches": len(patches)}))
+        report({"out": args.out, "bins": sorted(bins), "patches": len(patches)})
         return 0
 
     init_params = None
@@ -259,15 +276,14 @@ def main(argv=None, timings=None) -> int:
     else:
         t_train = sync_clock()
         params, losses = trainer.train_denoiser(
-            model, patches, sigma, steps=args.steps, batch_size=args.batch, cfg=cfg, conditioned=conditioned,
-            ffdnet_style=ffdnet_style, params=init_params, ckpt_cb=ckpt_cb, ckpt_every=args.ckpt_every,
-            device=device)
+            model, patches, sigma, steps=args.steps, batch_size=args.batch, cfg=cfg, mesh=mesh,
+            conditioned=conditioned, ffdnet_style=ffdnet_style, params=init_params, ckpt_cb=ckpt_cb,
+            ckpt_every=args.ckpt_every, device=device)
     t_save = sync_clock()
     save(params, args.out)
     if timings is not None:
         timings.update(split, setup_s=t_train - t0, train_s=t_save - t_train, save_s=time.perf_counter() - t_save)
-    print(json.dumps({"out": args.out, "losses": losses[-3:],
-                      "patches": (f"synth:{args.synth}" if args.synth else len(patches))}))
+    report({"out": args.out, "losses": losses[-3:], "patches": (f"synth:{args.synth}" if args.synth else len(patches))})
     return 0
 
 

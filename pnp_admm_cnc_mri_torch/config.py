@@ -1,6 +1,6 @@
 """Solver configuration: a copy of the JAX package's ``config.py:16-331``:
 ADMM (classical and PnP, with the CNN and BM3D
-priors), FISTA and PGD, HQS, RED, single-device consensus, and the DPIR
+priors), FISTA and PGD, HQS, RED, consensus, and the DPIR
 restoration pipelines (PnP super-resolution and deblurring,
 ``cli/experiments.py``) with their blur kernels and model names."""
 

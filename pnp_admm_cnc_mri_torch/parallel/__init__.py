@@ -1,1 +1,2 @@
-"""Reductions over the batch and the single-device consensus solvers."""
+"""The mesh of torch.distributed ranks, its reductions, the spatially split
+ADMM solve and the consensus solvers (one process, or sharded over the mesh)."""

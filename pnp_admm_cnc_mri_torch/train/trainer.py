@@ -23,14 +23,19 @@ only on logging steps. ``scan_steps > 1`` keeps the JAX package's megastep
 accounting (losses sampled inside a megastep, checkpoints at its ends, a
 short tail overshot) although nothing here needs the scan.
 
-The JAX package's data-and-tensor-parallel mesh (``mesh=``,
-``shard_params_tp``, ``shard_batch_dp``) waits for the port's
-``torch.distributed`` slice; ``mesh=`` raises.
+``train_denoiser(mesh=)`` is the JAX package's data-and-tensor-parallel
+trainer over a (data, space) mesh (``parallel/mesh.py``): each rank keeps
+its ``data`` slice of the global batch and averages the gradients over
+``data``; the convolutions whose out-channels divide the ``space`` axis
+keep their slice of those channels (``shard_params_tp``) and all-gather
+their outputs over ``space``. JAX's GSPMD inserts these collectives; here
+the model's hooks and the optimizer call them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import math
@@ -40,10 +45,9 @@ import numpy as np
 import torch
 
 from pnp_admm_cnc_mri_torch.models import convert
+from pnp_admm_cnc_mri_torch.parallel import mesh as mesh_lib
+from pnp_admm_cnc_mri_torch.parallel.reductions import global_mean
 from pnp_admm_cnc_mri_torch.solvers.admm import resolve_device
-
-MESH_TODO = ("mesh= (the JAX package's dp x tp sharded trainer: shard_params_tp, shard_batch_dp) waits for the "
-             "port's torch.distributed slice (ROADMAP.md, M8's sharded half)")
 
 
 @dataclasses.dataclass
@@ -128,12 +132,14 @@ def cosine_decay(steps: int, alpha: float) -> Callable[[int], float]:
     return factor
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float, norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` on the gradients, in place, without a
     host read and in a few multi-tensor launches: ``g / |g| * max_norm``
     where the global norm ``|g|`` is at least ``max_norm``, ``g`` (divided
-    and multiplied by 1) where it is less. Returns the norm."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    and multiplied by 1) where it is less. ``norm``, when given, is ``|g|``
+    (a sharded model's, ``MeshOptimizer.global_norm``). Returns the norm."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     clip, one = norm >= max_norm, torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(clip, norm, one))
     torch._foreach_mul_(grads, torch.where(clip, torch.full_like(norm, max_norm), one))
@@ -169,6 +175,129 @@ def make_optimizer(cfg: TrainConfig, params, steps: Optional[int] = None) -> Opt
     """The optimizer of ``cfg`` over ``params``; ``steps`` enables the cosine
     schedule (lr -> lr_floor * lr over the run)."""
     return Optimizer(params, cfg, steps)
+
+
+# -- the dp x tp mesh (JAX's ``train/trainer.py:92-113``) --------------------------
+
+
+class _ReplicatedInput(torch.autograd.Function):
+    """The identity forward; the backward sums the input's gradient over
+    ``space``. A split conv's backward gives only its channels' share of
+    its input's gradient, and its input is the same on every ``space`` rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return mesh_lib.all_reduce(g, ctx.mesh, "space"), None
+
+
+class _GatherChannels(torch.autograd.Function):
+    """A split conv's output channels all-gathered over ``space`` along C.
+    The backward returns this rank's slice of the incoming gradient, not a
+    sum over the ranks: every ``space`` rank runs the same computation
+    downstream and holds the whole gradient already
+    (``torch.distributed.nn.functional.all_gather``'s reduce-scatter would
+    make it n times too large)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.c = mesh, x.shape[1]
+        return mesh_lib.all_gather(x, mesh, "space", dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.mesh.coords["space"]
+        return g.narrow(1, s * ctx.c, ctx.c).contiguous(), None
+
+
+def _out_dim(m: torch.nn.Module) -> int:
+    """The out-channel dim of a conv's weight: 0 (OIHW), 1 for a transposed conv (IOHW)."""
+    return 1 if isinstance(m, torch.nn.ConvTranspose2d) else 0
+
+
+def shard_params_tp(model: torch.nn.Module, mesh, axis: str = "space") -> dict:
+    """Tensor-parallel split of ``model`` in place: every conv whose
+    out-channels divide the ``axis`` size n (n > 1) keeps its rank's
+    contiguous slice of them (weight and bias) and all-gathers its output
+    over ``axis``; every other parameter stays whole. Returns
+    ``{parameter name: split dim}``.
+
+    JAX's ``shard_params_tp`` places each 4-D kernel on its last axis and
+    each 1-D parameter whose size divides n. A Flax conv's last axis is its
+    out-channels; a ``ConvTranspose(transpose_kernel=True)`` kernel's is its
+    in-channels, where the port takes the out-channels as for the other
+    convs (at the models' widths both divide). The models' only 1-D
+    parameters are conv biases, so the two splits cover the same tensors."""
+    n, s = mesh.shape[axis], mesh.coords[axis]
+    split = {}
+    if n == 1:
+        return split
+    for name, m in model.named_modules():
+        if not isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            continue
+        dim = _out_dim(m)
+        c = m.weight.shape[dim]
+        if c % n or c < n:
+            continue
+        k = c // n
+        with torch.no_grad():
+            m.weight = torch.nn.Parameter(m.weight.narrow(dim, s * k, k).clone())
+            split[f"{name}.weight"] = dim
+            if m.bias is not None:
+                m.bias = torch.nn.Parameter(m.bias.narrow(0, s * k, k).clone())
+                split[f"{name}.bias"] = 0
+        m.register_forward_pre_hook(lambda mod, args: (_ReplicatedInput.apply(args[0], mesh), *args[1:]))
+        m.register_forward_hook(lambda mod, args, out: _GatherChannels.apply(out, mesh))
+    return split
+
+
+def gather_params_tp(model: torch.nn.Module, mesh, split: dict, axis: str = "space") -> dict:
+    """``model``'s state dict with every split parameter all-gathered whole
+    over ``axis`` (copies; JAX's ``np.asarray`` of the sharded tree)."""
+    return {k: (mesh_lib.all_gather(v.detach(), mesh, axis, dim=split[k]) if k in split else v.detach()).clone()
+            for k, v in model.state_dict().items()}
+
+
+def shard_batch_dp(batch, mesh, dtype=torch.float32, axis: str = "data") -> tuple:
+    """This rank's ``axis`` slice of each NHWC array of ``batch`` (noisy,
+    clean, sigma), as NCHW tensors of ``dtype`` on the mesh's device."""
+    return tuple(mesh_lib.shard_batch(b, mesh, axis).to(dtype).permute(0, 3, 1, 2) for b in batch)
+
+
+class MeshOptimizer(Optimizer):
+    """``Optimizer`` on a rank's local parameters: the gradients averaged
+    over ``data`` first (one all-reduce of them all), the clip on the global
+    norm, Adam per element."""
+
+    def __init__(self, named_params, cfg: TrainConfig, steps, mesh, split: dict):
+        named = [(k, p) for k, p in named_params if p.requires_grad]
+        super().__init__([p for _, p in named], cfg, steps)
+        self.mesh, self.is_split = mesh, [k in split for k, _ in named]
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The norm of the whole gradient: each split tensor's squared local
+        norms summed over ``space``, so that it counts once, beside the
+        whole tensors' norms (the plain rule when nothing is split)."""
+        norms = list(torch._foreach_norm([g for g, sp in zip(grads, self.is_split) if not sp]))
+        parts = [g for g, sp in zip(grads, self.is_split) if sp]
+        if parts:
+            sq = torch.sum(torch.stack(torch._foreach_norm(parts)) ** 2)
+            norms.append(torch.sqrt(mesh_lib.all_reduce(sq, self.mesh, "space")))
+        return torch.linalg.vector_norm(torch.stack(norms))
+
+    def step(self):
+        grads = [p.grad for p in self.params]
+        flat = mesh_lib.all_reduce(torch.cat([g.reshape(-1) for g in grads]), self.mesh, "data")
+        flat = flat / self.mesh.shape["data"]
+        torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)])
+        if self.grad_clip:
+            clip_by_global_norm_(grads, self.grad_clip, norm=self.global_norm(grads))
+        self.opt.step()
+        self.schedule.step()
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
@@ -253,21 +382,37 @@ def train_denoiser(
     ``patches`` (``data.batches``, the JAX package's draws for ``seed``);
     returns ``(state_dict, losses)``. ``ckpt_cb(step, state_dict)`` is called
     every ``ckpt_every`` steps and at the end. ``device`` None is the CUDA
-    card."""
+    card.
+
+    With a ``mesh`` (every rank of it calls this, on the mesh's device),
+    every rank draws the same global batch and keeps its ``data`` slice
+    (the batch size must divide the axis), the convs are split over
+    ``space`` (``shard_params_tp``), and the loss logged is the global
+    batch's. ``ckpt_cb`` and the result get the whole parameters on every
+    rank."""
     from pnp_admm_cnc_mri_torch.train import data as data_mod
 
+    device = mesh.device if mesh is not None else resolve_device(device)
     if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
-    device = resolve_device(device)
+        model = copy.deepcopy(model)  # shard_params_tp rebuilds the module: leave the caller's whole
     model = prepare_model(model, params, seed, dtype, device)
-    step_fn = make_train_step(_loss_of(model, cfg, conditioned, ffdnet_style),
-                              make_optimizer(cfg, model.parameters(), steps))
+    loss_fn = _loss_of(model, cfg, conditioned, ffdnet_style)
     host = data_mod.batches(patches, batch_size, sigma, seed=seed)
+    if mesh is None:
+        step_fn = make_train_step(loss_fn, make_optimizer(cfg, model.parameters(), steps))
 
-    def fused_step():
-        return step_fn(*(_nchw(b, device, dtype) for b in next(host)))
+        def fused_step():
+            return step_fn(*(_nchw(b, device, dtype) for b in next(host)))
 
-    out = lambda: state_of(model)  # noqa: E731
+        out = lambda: state_of(model)  # noqa: E731
+    else:
+        split = shard_params_tp(model, mesh)
+        step_fn = make_train_step(loss_fn, MeshOptimizer(model.named_parameters(), cfg, steps, mesh, split))
+
+        def fused_step():
+            return global_mean(step_fn(*shard_batch_dp(next(host), mesh, dtype)), mesh)
+
+        out = lambda: gather_params_tp(model, mesh, split)  # noqa: E731
     losses = _run(fused_step, out, steps, 1, log_every, ckpt_cb, ckpt_every)
     return out(), losses
 

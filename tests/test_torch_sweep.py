@@ -47,6 +47,7 @@ from pnp_admm_cnc_mri_torch.cli import sweep
 from pnp_admm_cnc_mri_torch.data import images, masks, noise, phantom
 from pnp_admm_cnc_mri_torch.priors import denoiser as dn
 
+import test_torch_ranks as ranks
 from test_torch_experiments import write_assets
 
 # --algo: (extra argv, tol, converged fraction)
@@ -170,3 +171,55 @@ def test_main_needs_the_card_or_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(noise, "DEFAULT_DATA_DIR", ddir)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sweep.main(["--testset", "set1"])
+
+
+def test_build_grid_rows_are_the_grids_rows():
+    imgs, ms, base = _grid_inputs(n_img=20)
+    full = sweep.build_grid(imgs, ms, [1.0, 2.0], base)
+    for rows in (np.arange(60, 120), np.array([119, 0, 33, 5, 5, 64]), np.arange(100, 120)):
+        part = sweep.build_grid(imgs, ms, [1.0, 2.0], base, rows=rows)
+        for a, b in zip(part[:3], full[:3]):
+            assert np.array_equal(a, b[rows]) and a.dtype == b.dtype
+        assert part[3] == [full[3][r] for r in rows]
+
+
+# -- world 2: two gloo ranks (test_torch_ranks.cli_rank) against the one-process run.
+# The 3 images x 3 masks x 1 sigma grid (9 scenarios) pads to 10, one repeated row on rank 1.
+
+WORLD2_ALGOS = ("admm_l1", "admm_cnc")
+
+
+def _world2_argv(root, algo, tag):
+    extra, tol, _ = RUNS[algo]
+    return ["--cpu", "--algo", algo, "--testset", "set1", "--tol", str(tol), *extra, "--out",
+            str(root / f"{algo}_{tag}.jsonl")]
+
+
+@pytest.fixture(scope="module")
+def world2(tmp_path_factory):
+    root = tmp_path_factory.mktemp("sweep_world2")
+    tdir, ddir = write_assets(str(root))
+    runs = [(algo, _world2_argv(root, algo, "w2")) for algo in WORLD2_ALGOS]
+    ranks.launch(ranks.cli_rank, 2, str(root), "pnp_admm_cnc_mri_torch.cli.sweep", runs, tdir, ddir)
+    return root, tdir, ddir
+
+
+@pytest.mark.parametrize("algo", WORLD2_ALGOS)
+def test_world_2_equals_world_1(world2, monkeypatch, capsys, algo):
+    root, tdir, ddir = world2
+    monkeypatch.setattr(images, "DEFAULT_TESTSETS", tdir)
+    monkeypatch.setattr(masks, "DEFAULT_DATA_DIR", ddir)
+    monkeypatch.setattr(noise, "DEFAULT_DATA_DIR", ddir)
+    assert sweep.main(_world2_argv(root, algo, "w1")) == 0
+    one = json.loads(capsys.readouterr().out.strip())
+    two = [(root / f"{algo}_rank{r}.txt").read_text().strip().splitlines() for r in range(2)]
+    assert len(two[0]) == 1 and two[1] == []  # rank 0 alone prints
+    two = json.loads(two[0][0])
+    assert two["devices"] == 2 and one["devices"] == 1 and two["scenarios"] == one["scenarios"] == 9
+    for k in ("iters", "avg_psnr", "converged_fraction", "tol"):
+        assert two[k] == one[k], k
+    got, want = _rows(root / f"{algo}_w2.jsonl"), _rows(root / f"{algo}_w1.jsonl")
+    assert [r["scenario"] for r in got] == [r["scenario"] for r in want] and len(got) == 9
+    for a, b in zip(got, want):
+        assert a["psnr"] == b["psnr"] and a["residual"] == b["residual"]
+

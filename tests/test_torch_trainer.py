@@ -29,6 +29,8 @@ from pnp_admm_cnc_mri_tpu.train import trainer as jtrainer
 from pnp_admm_cnc_mri_torch.models import convert, dncnn, ffdnet
 from pnp_admm_cnc_mri_torch.train import data, synth, trainer
 
+import test_torch_ranks as ranks
+
 CPU = torch.device("cpu")
 
 
@@ -173,9 +175,118 @@ def test_train_denoiser_matches_jax_over_10_steps(kind, loss, kw, sigma, patches
     assert _tree_err(tp, jp) < 1e-9
 
 
-def test_mesh_waits_for_the_distributed_slice(patches):
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        trainer.train_denoiser(dncnn.DnCNN(1, 1, nc=4, nb=2), patches, 0.1, mesh=object(), device=CPU)
+# ---------------------------------------------------------------------------
+# the dp x tp mesh: a world of 4 gloo ranks at data 2 x space 2
+# (test_torch_ranks.trainer_rank), against the unsharded port and JAX's
+# sharded step (tests/test_train.py:84) from the same Flax-initialised
+# DnCNN (nc 8, nb 4). float32 at the JAX test's limits (loss rtol 1e-5,
+# parameters rtol 1e-4 + atol 1e-6); float64 at 1e-9.
+
+MESH_F32 = dict(rtol=1e-4, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def mesh_tree():
+    return jax.tree.map(np.asarray, dict(jdncnn.DnCNN(out_nc=1, nc=8, nb=4).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 1)))))
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory, mesh_tree):
+    from pnp_admm_cnc_mri_tpu.models import convert as jconvert
+
+    out = tmp_path_factory.mktemp("trainer_mesh")
+    jconvert.save_npz(mesh_tree, str(out / "tree.npz"))
+    ranks.launch(ranks.trainer_rank, 4, str(out), str(out / "tree.npz"))
+    return ranks.load_ranks(str(out), "trainer", 4)
+
+
+def _jax_mesh_2x2():
+    from pnp_admm_cnc_mri_tpu.parallel import mesh as jmesh
+
+    return jmesh.make_mesh(n_data=2, n_space=2, devices=jax.devices()[:4])
+
+
+def _jax_sharded_step(tree, lr, clip, jdt):
+    """tests/test_train.py:84's sharded step, at ``lr``, ``clip`` and ``jdt``."""
+    tree = jax.tree.map(lambda a: jnp.asarray(a, jdt), tree)
+    mesh = _jax_mesh_2x2()
+    optimizer = jtrainer.make_optimizer(jtrainer.TrainConfig(learning_rate=lr, grad_clip=clip))
+    step = jtrainer.make_train_step(jtrainer.make_loss_fn(jdncnn.DnCNN(out_nc=1, nc=8, nb=4).apply, "l2"), optimizer)
+    p = jtrainer.shard_params_tp(tree, mesh)
+    batch = jtrainer.shard_batch_dp(tuple(np.asarray(a, jdt) for a in ranks.trainer_batch()), mesh)
+    p, _, loss = step(p, optimizer.init(p), *batch)
+    return float(loss), jax.tree.map(np.asarray, p)
+
+
+def _port_step(tree, lr, clip, dtype):
+    """The port's unsharded step on the same batch; returns (loss, state, the gradient's global norm)."""
+    model = trainer.prepare_model(dncnn.DnCNN(1, 1, nc=8, nb=4), tree, 0, dtype, CPU)
+    opt = trainer.make_optimizer(trainer.TrainConfig(learning_rate=lr, grad_clip=clip), model.parameters())
+    batch = [torch.from_numpy(a).to(dtype).permute(0, 3, 1, 2) for a in ranks.trainer_batch()]
+    loss = trainer.make_loss_fn(model, "l2")(*batch)
+    loss.backward()
+    norm = float(torch.linalg.vector_norm(torch.stack([p.grad.norm() for p in model.parameters()])))
+    opt.step()
+    return float(loss.detach()), trainer.state_of(model), norm
+
+
+@pytest.mark.parametrize("case", sorted(ranks.TRAINER_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_sharded_step_matches_unsharded_and_jax(mesh_ranks, mesh_tree, case, dtype):
+    lr, clip = ranks.TRAINER_CASES[case]
+    jl, jp = _jax_sharded_step(mesh_tree, lr, clip, jnp.float32 if dtype == torch.float32 else jnp.float64)
+    ul, us, _ = _port_step(mesh_tree, lr, clip, dtype)
+    for res in mesh_ranks:
+        got = res[f"{case}_{dtype}"]
+        # every conv but the last (1 output channel) is split over space 2
+        assert got["split"] == sorted(f"{k}.{w}" for k in ("head.conv", "body0.conv", "body1.conv") for w in
+                                      ("weight", "bias"))
+        assert got["local"]["head.conv.weight"] == (4, 1, 3, 3) and got["local"]["tail.conv.weight"] == (1, 8, 3, 3)
+        for want_loss, want in ((ul, us), (jl, None)):
+            if dtype == torch.float32:
+                np.testing.assert_allclose(got["loss"], want_loss, rtol=1e-5)
+            else:
+                assert abs(got["loss"] - want_loss) < 1e-9
+        for k, v in got["state"].items():
+            assert v.shape == us[k].shape and v.dtype == dtype
+            if dtype == torch.float32:
+                np.testing.assert_allclose(v.numpy(), us[k].numpy(), **MESH_F32)
+            else:
+                np.testing.assert_allclose(v.numpy(), us[k].numpy(), atol=1e-9, rtol=0)
+        if dtype == torch.float32:
+            port, want = convert.flax_tree_from_state_dict(got["state"]), jp
+            for a, b in zip(jax.tree.leaves(port), jax.tree.leaves(want)):
+                np.testing.assert_allclose(a, b, **MESH_F32)
+        else:
+            assert _tree_err(got["state"], jp) < 1e-9
+
+
+def test_the_clip_engages_in_the_clipped_case(mesh_tree):
+    """The clipped case's gradient norm is far above its clip, and clipping
+    moves the step by much more than the limits above: a norm that counted
+    a split tensor wrongly would show."""
+    lr, clip = ranks.TRAINER_CASES["clipped"]
+    _, clipped, norm = _port_step(mesh_tree, lr, clip, torch.float64)
+    _, unclipped, _ = _port_step(mesh_tree, lr, None, torch.float64)
+    assert norm > 100 * clip
+    assert max(float((clipped[k] - unclipped[k]).abs().max()) for k in clipped) > 1e-5
+
+
+def test_train_denoiser_on_the_mesh_matches_unsharded_and_jax(mesh_ranks, mesh_tree):
+    tree64 = jax.tree.map(lambda a: np.asarray(a, np.float64), mesh_tree)
+    args = dict(steps=ranks.TRAINER_STEPS, batch_size=8, log_every=1)
+    us, ul = trainer.train_denoiser(dncnn.DnCNN(1, 1, nc=8, nb=4), ranks.trainer_patches(), 0.1, params=tree64,
+                                    dtype=torch.float64, device=CPU, **args)
+    jp, jl = jtrainer.train_denoiser(jdncnn.DnCNN(out_nc=1, nc=8, nb=4), ranks.trainer_patches(), 0.1,
+                                     params=jax.tree.map(jnp.asarray, tree64), mesh=_jax_mesh_2x2(), **args)
+    for res in mesh_ranks:
+        got = res["train_denoiser"]
+        assert [i for i, _ in got["losses"]] == [i for i, _ in ul] == [i for i, _ in jl]
+        np.testing.assert_allclose([l for _, l in got["losses"]], [l for _, l in ul], atol=1e-9, rtol=0)
+        np.testing.assert_allclose([l for _, l in got["losses"]], [l for _, l in jl], atol=1e-9, rtol=0)
+        assert max(float((got["state"][k] - us[k]).abs().max()) for k in us) < 1e-9
+        assert _tree_err(got["state"], jp) < 1e-9
 
 
 # ---------------------------------------------------------------------------
