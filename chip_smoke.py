@@ -163,6 +163,29 @@ Phases, each timed and each fatal on failure:
            fold files that partition the 15 images (``--select_nlm 12,15``,
            4 iterations), its composite the mean of its held-out PSNRs;
            prints each run's ``wall_s`` and call time;
+- catalog: the rest of the JAX package. (a) The five U-Net variants of
+           ``models/unet_variants.py`` at full width and their default
+           depths, seeded Flax-rule weights, 4 x 1 x 256 x 256 (ResUNet also
+           252 x 252), float32 with cuDNN's TF32 off against float64 of the
+           same weights, with forward times, FLOPs, float32-peak share and
+           peak memory; (b) a full-width DRUNet written as a KAIR ``.pth``
+           in the reference's key layout: ``build_denoiser`` and
+           ``cli.main pnp_cnc_d`` bit-equal to its npz; UNetPlus and
+           NonLocalUNet with random BatchNorm statistics converted (folded)
+           against the unfolded nets with ``F.batch_norm``, float64, 1e-12;
+           (c) ``admm_l1`` at 512 x 256 x 256 x 50 with the matmul DC solve
+           (Nyquist-packed, Karatsuba products) against the fft solve (mean
+           PSNR, max and mean |dx|), in float64 at 4 x 256 x 256 and, in the
+           unpacked form, at 4 x 256 x 255 within 1e-9, timed in turns, K1
+           50 launches a solve; (d) ``resolve_dc_method('auto')`` on the
+           card at 256 and 2048; (e) the image readers: the fixtures of
+           ``tests/torch_image_fixtures`` decoded to their stored cv2
+           pixels, and a 15-image testset of ``.png``-named BMP (written
+           here) and JPEG (the fixtures) payloads through ``cli.main
+           admm_l1`` with PSNR lines equal to those of a PNG copy of the
+           pixels cv2 gives (the BMPs' by OpenCV's rule, the JPEGs' stored).
+           Each run's K1-K3 counts are set to 0 just before it and read just
+           after;
 - distributed: the multi-device path of ``parallel/`` (mesh, reductions,
            spatial FFT-ADMM, sharded consensus), the sharded sweep, the
            multihost worker and the dp x tp trainer. At world 1 on NCCL in
@@ -1241,6 +1264,324 @@ def phase_cli(dev, tmp: str, tdir: str, ddir: str) -> dict:
         f"(10 CLI runs) {folds_s:.3f}; assets (PNGs, 6 npz) {t_assets:.3f}; mean PSNR (dB) "
         f"{json.dumps({k: round(v['psnr'], 3) for k, v in out.items()})}")
     return {"wall_s": walls, "call_s": call_s, "subprocess_s": sub_s, "eval_folds_s": folds_s, "tail_err": tail_err}
+
+
+# -- catalog: the U-Net catalog, KAIR .pth weights, the matmul DC solve, the image readers --
+# full-width U-Net variants, float32 (cuDNN TF32 off) against float64 of the same weights: the largest
+# difference over the largest output read at most 1.34e-6 on the CPU over 3 seeds at 64 x 64
+# (probes/catalog_precision.py cpu 64 1 3); the limit is ~11x that (TF32 convolutions err ~1e-3)
+CATALOG_RTOL = 1.5e-5
+CATALOG_VARIANTS = ("UNet", "ResUNet", "UNetResSubP", "UNetPlus", "NonLocalUNet")
+CATALOG_B = 4
+# the matmul DC solve: against the fft solve within the fused kernel's precedent (mean PSNR 0.05 dB);
+# float64 at 4 x 256 x 256 (packed) and 4 x 256 x 255 (unpacked) within 1e-9 of the fft solve
+DC_PSNR_DB = 0.05
+DC_F64_ATOL = 1e-9
+FOLD_ATOL = 1e-12  # the folded BatchNorm against the unfolded net, float64
+FIXTURES = os.path.join("tests", "torch_image_fixtures")
+
+
+def kair_key(arch: str, mod: str, nb: int):
+    """The reference checkpoint's prefix of the port module ``mod`` of
+    ``arch`` (drunet, unet_plus, nonlocal_unet; the converters' layouts),
+    and that of the BatchNorm after it (None where there is none)."""
+    if mod in ("head", "tail"):
+        return ("m_head.0" if mod == "head" and arch == "nonlocal_unet" else f"m_{mod}"), None
+    m = re.fullmatch(r"(down|up)_nonlocal\.(theta|phi|g|w)", mod)
+    if m:
+        t = "m_down3.0" if m.group(1) == "down" else f"m_up3.{2 * (nb + 1)}"
+        return (f"{t}.W.0", f"{t}.W.1") if m.group(2) == "w" else (f"{t}.{m.group(2)}", None)
+    m = re.fullmatch(r"(?:(down|up)(\d)|body)_(res|conv|ds|us)(\d*)(?:\.conv(\d)?)?", mod)
+    kind, lvl, blk, i, c = m.group(1) or "body", int(m.group(2) or 0), m.group(3), int(m.group(4) or 0), m.group(5)
+    t = "m_body" if kind == "body" else f"m_{kind}{lvl + 1}"
+    if arch == "drunet":
+        if blk in ("ds", "us"):
+            return (f"{t}.{nb}" if blk == "ds" else f"{t}.0"), None
+        return f"{t}.{i + (kind == 'up')}.res.{2 * (int(c) - 1)}", None
+    if arch == "unet_plus":
+        if blk == "ds":
+            return f"{t}.{3 * nb}", None
+        if blk == "us":
+            return f"{t}.0", f"{t}.1"
+        slot = 3 * (i + (kind == "up"))
+        return f"{t}.{slot}", (None if kind == "up" and i == nb - 1 else f"{t}.{slot + 1}")
+    off = 1 if (kind, lvl) == ("down", 2) else 0  # nonlocal_unet
+    if blk in ("ds", "us"):
+        return (f"{t}.{off + 2 * nb}" if blk == "ds" else f"{t}.0"), None
+    return (f"{t}.{off + 2 * i}" if kind in ("down", "body") else f"{t}.{2 * (i + 1)}"), None
+
+
+def kair_state_dict(arch: str, module, nb: int, seed: int):
+    """A reference-layout state dict of ``module``'s shapes (seeded normal
+    weights of variance 1 / fan-in and biases; random BatchNorm statistics
+    after the convs the layout folds), and {port module: (prefix, BatchNorm)}."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sd, where = {}, {}
+    for key, p in module.state_dict().items():
+        mod, leaf = key.rsplit(".", 1)
+        pre, bn = where[mod] = kair_key(arch, mod, nb)
+        sd[f"{pre}.{leaf}"] = torch.randn(p.shape, generator=g, dtype=torch.float64) * (
+            p[0].numel() ** -0.5 if leaf == "weight" else 0.1)
+        if bn is not None and leaf == "weight":
+            n = p.shape[1] if isinstance(module.get_submodule(mod), torch.nn.ConvTranspose2d) else p.shape[0]
+            sd.update({f"{bn}.weight": torch.rand(n, generator=g, dtype=torch.float64) + 0.5,
+                       f"{bn}.bias": torch.randn(n, generator=g, dtype=torch.float64) * 0.1,
+                       f"{bn}.running_mean": torch.randn(n, generator=g, dtype=torch.float64) * 0.3,
+                       f"{bn}.running_var": torch.rand(n, generator=g, dtype=torch.float64) + 0.5,
+                       f"{bn}.num_batches_tracked": torch.tensor(7)})
+    return sd, where
+
+
+def unfolded_net(module, sd, where):
+    """``module`` with the checkpoint's own conv weights and each BatchNorm
+    applied after its conv by ``F.batch_norm(training=False)`` (eps 1e-4),
+    before any activation: the reference's eval-mode graph."""
+    import torch
+    import torch.nn.functional as F
+
+    module.load_state_dict({f"{mod}.{leaf}": sd[f"{pre}.{leaf}"] for mod, (pre, _) in where.items()
+                            for leaf in ("weight", "bias") if f"{mod}.{leaf}" in module.state_dict()})
+    for mod, (_, bn) in where.items():
+        if bn is None:
+            continue
+        conv = module.get_submodule(mod)
+
+        def with_bn(y, bn=bn):
+            st = {k: sd[f"{bn}.{k}"].to(y.device) for k in ("running_mean", "running_var", "weight", "bias")}
+            return F.batch_norm(y, st["running_mean"], st["running_var"], st["weight"], st["bias"],
+                                training=False, eps=1e-4)
+
+        if isinstance(conv, torch.nn.ConvTranspose2d):  # its parent applies the activation after it
+            conv.register_forward_hook(lambda m, a, out, f=with_bn: f(out))
+        else:
+            conv._conv_forward = lambda x, w, b, inner=conv._conv_forward, f=with_bn: f(inner(x, w, b))
+    return module
+
+
+def write_bmp(path: str, rgb) -> None:
+    """A bottom-up BMP: 8-bit with a gray palette for (H, W), 24-bit for (H, W, 3) RGB uint8."""
+    import struct
+
+    import numpy as np
+
+    h, w = rgb.shape[:2]
+    if rgb.ndim == 2:
+        px, bpp = rgb, 8
+        pal = np.zeros((256, 4), np.uint8)
+        pal[:, :3] = np.arange(256)[:, None]
+    else:
+        px, bpp, pal = rgb[..., ::-1].reshape(h, -1), 24, np.zeros((0, 4), np.uint8)
+    stride = (w * bpp + 31) // 32 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : px.shape[1]] = px
+    off = 14 + 40 + pal.size
+    with open(path, "wb") as f:
+        f.write(struct.pack("<2sIHHI", b"BM", off + rows.size, 0, 0, off)
+                + struct.pack("<IiiHHIIiiII", 40, w, h, 1, bpp, 0, rows.size, 2835, 2835, len(pal), 0)
+                + pal.tobytes() + rows[::-1].tobytes())
+
+
+def phase_catalog(dev, tmp: str, tdir: str, ddir: str, img, y, mask) -> dict:
+    """(a) the five U-Net variants at full width, float32 against float64,
+    timed; (b) KAIR .pth weights: DRUNet through ``build_denoiser`` and the
+    CLI bit-equal to its npz, the BatchNorm folds of UNetPlus and
+    NonLocalUNet against the unfolded nets; (c) the matmul DC solve of
+    ``admm_l1`` at the main path's shape against the fft solve, timed in
+    turns, and in float64 at even and odd W; (d) ``resolve_dc_method`` on
+    the card; (e) the image readers: the fixtures, and a testset of
+    ``.png``-named BMP and JPEG payloads through ``cli.main admm_l1``.
+    Returns its numbers, the launch counts of each run among them."""
+    import copy
+    import glob
+
+    import numpy as np
+    import torch
+
+    from pnp_admm_cnc_mri_torch.cli import main as cli_main
+    from pnp_admm_cnc_mri_torch.config import ADMM_L1_DEFAULT
+    from pnp_admm_cnc_mri_torch.data import images, phantom
+    from pnp_admm_cnc_mri_torch.models import convert, drunet, unet_variants as uv
+    from pnp_admm_cnc_mri_torch.ops import fourier, metrics
+    from pnp_admm_cnc_mri_torch.priors import denoiser
+    from pnp_admm_cnc_mri_torch.solvers import admm
+    from pnp_admm_cnc_mri_torch.utils import flops
+
+    res: dict = {"launches": {}}
+
+    def counted(tag, fn):
+        dist_reset()
+        out = fn()
+        torch.cuda.synchronize()
+        res["launches"][tag] = dist_counts()
+        return out
+
+    # (a) the U-Net variants at full width
+    x32 = torch.from_numpy(img[:CATALOG_B, None]).to(dev)
+    nets = {}
+    for k, name in enumerate(CATALOG_VARIANTS):
+        model = convert.flax_init_(getattr(uv, name)(), torch.Generator().manual_seed(k))
+        check(model.nb == {"UNet": 2, "ResUNet": 4, "UNetResSubP": 2, "UNetPlus": 1, "NonLocalUNet": 1}[name],
+              f"{name}: nb {model.nb}")
+        m32, m64 = model.float().to(dev).eval(), copy.deepcopy(model).double().to(dev).eval()
+        for size in ((256, 252) if name == "ResUNet" else (256,)):
+            xs = x32[..., :size, :size].contiguous()
+            with torch.no_grad(), denoiser.full_precision_convs():
+                y32, y64 = counted(f"unet_{name}@{size}", lambda: (m32(xs), m64(xs.double())))
+                check(tuple(y32.shape) == tuple(xs.shape) and bool(torch.isfinite(y32).all()),
+                      f"{name}@{size}: output {tuple(y32.shape)}, finite {bool(torch.isfinite(y32).all())}")
+                rel = float((y32.double() - y64).abs().max() / y64.abs().max())
+                check(rel < CATALOG_RTOL, f"{name}@{size}: float32 vs float64 {rel} of the largest output")
+                ms = cuda_ms(lambda: m32(xs), reps=5)
+                fl = flops.matmul_flops(m32, xs)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base_mem = torch.cuda.memory_allocated()
+                m32(xs)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base_mem
+            nets[f"{name}@{size}"] = {"f32_vs_f64_rel": rel, "forward_ms": ms, "gflop": fl / 1e9,
+                                      "fp32_peak_share": fl / (ms / 1e3) / FP32_FLOPS, "peak_mib": peak / 2**20,
+                                      "params_m": sum(p.numel() for p in model.parameters()) / 1e6}
+        del m32, m64
+    res["unets"] = nets
+    log(f"catalog (a): U-Net variants at nc (64, 128, 256, 512), {CATALOG_B} x 1 x 256 x 256 (ResUNet also 252): "
+        + json.dumps(nets))
+
+    # (b) KAIR .pth: full-width DRUNet through build_denoiser and the CLI, bit-equal to its npz
+    net = drunet.UNetRes(2, 1)
+    sd, _ = kair_state_dict("drunet", net, 4, seed=21)
+    pth, npz = os.path.join(tmp, "drunet_kair.pth"), os.path.join(tmp, "drunet_kair.npz")
+    torch.save({k: v.float() for k, v in sd.items()}, pth)
+    tree = convert.convert_drunet({k: v.float() for k, v in sd.items()})
+    net.load_state_dict(convert.state_dict_from_flax(net, tree))
+    convert.save_npz(net, npz)
+    v = torch.from_numpy(img[:CATALOG_B]).to(dev)
+    d_pth, d_npz = (denoiser.build_denoiser("drunet_gray", weights=p, iter_num=8) for p in (pth, npz))
+    for i in (0, 7):
+        check(torch.equal(d_pth(v, i), d_npz(v, i)), f"DRUNet from the .pth differs from its npz at iteration {i}")
+    cli_lines = {}
+    for tag, wpath in (("pth", pth), ("npz", npz)):
+        argv = ["pnp_cnc_d", "--model", "drunet_gray", "--weights", wpath, "--iter_num", "4", "--testset", "set1",
+                "--testsets_dir", tdir, "--data_dir", ddir, "--results_dir", os.path.join(tmp, "catalog_cli", tag)]
+        cli_lines[tag] = json.loads(counted(f"cli_pnp_cnc_d_{tag}", lambda: _run_main(cli_main.main, argv))[-1])
+    check(cli_lines["pth"]["per_image_psnr"] == cli_lines["npz"]["per_image_psnr"],
+          f"the CLI with the .pth {cli_lines['pth']['per_image_psnr']} vs its npz {cli_lines['npz']['per_image_psnr']}")
+    # the BatchNorm folds against the unfolded nets, float64
+    folds = {}
+    for arch, cls in (("unet_plus", uv.UNetPlus), ("nonlocal_unet", uv.NonLocalUNet)):
+        folded = cls().double()
+        sd, where = kair_state_dict(arch, folded, 1, seed=22)
+        folded.load_state_dict(convert.state_dict_from_flax(folded, convert.CONVERTERS[arch](sd, nb=1),
+                                                            torch.float64))
+        ref = unfolded_net(cls().double(), sd, where)
+        with torch.no_grad():
+            x64 = x32.double()
+            folds[arch] = float((folded.to(dev).eval()(x64) - ref.to(dev).eval()(x64)).abs().max())
+        check(folds[arch] < FOLD_ATOL, f"{arch}: folded BatchNorm vs unfolded {folds[arch]}")
+        check(sum(bn is not None for _, bn in where.values()) >= 2, f"{arch}: no BatchNorm to fold")
+    res["bn_fold_max_abs"] = folds
+    log(f"catalog (b): full-width DRUNet from a KAIR .pth through build_denoiser bit-equal to its npz (iterations "
+        f"0, 7); pnp_cnc_d through the CLI with --weights .pth equal to the npz run ({cli_lines['pth']['psnr']} dB);"
+        f" BatchNorm folds against F.batch_norm, float64 at {CATALOG_B} x 256 x 256: {json.dumps(folds)}")
+
+    # (c) the matmul DC solve at the main path's shape against the fft solve, then in turns
+    forms = ("fft", "matmul")
+
+    def solve(form, yy, mm, dtype=torch.float32):
+        return admm.admm_l1(yy, mm, ADMM_L1_DEFAULT, dtype=dtype, dc_method=form)[0].x
+
+    xs_dc = {f: counted(f"admm_l1_{f}", lambda: solve(f, y, mask)) for f in forms}
+    truth = torch.from_numpy(img).to(dev) * 255.0
+    psnr = {f: float(metrics.psnr(x * 255.0, truth).mean()) for f, x in xs_dc.items()}
+    dc_q = {}
+    for f, x in xs_dc.items():
+        check(bool(torch.isfinite(x).all()), f"admm_l1 {f}: non-finite output")
+        d = (x - xs_dc["fft"]).abs()
+        dc_q[f] = {"max_abs_vs_fft": float(d.max()), "mean_abs_vs_fft": float(d.mean()),
+                   "psnr_db": psnr[f], "psnr_vs_fft_db": psnr[f] - psnr["fft"]}
+        check(abs(psnr[f] - psnr["fft"]) < DC_PSNR_DB, f"admm_l1 {f}: mean PSNR {psnr[f]} vs fft {psnr['fft']}")
+        want = {"l1_tail": ITERS, "cnc_tail": 0, "fused_iteration": 0}
+        check(res["launches"][f"admm_l1_{f}"] == want, f"admm_l1 {f}: launches {res['launches'][f'admm_l1_{f}']}")
+    del xs_dc
+    f64 = {}
+    for w in (W, W - 1):  # even W: the packed form; odd W: the unpacked one
+        y4, m4 = y[:4, :, :w].to(torch.complex128).contiguous(), mask[:, :w].double().contiguous()
+        f64[f"{H}x{w}"] = float((solve("matmul", y4, m4, torch.float64) - solve("fft", y4, m4, torch.float64))
+                                .abs().max())
+    check(max(f64.values()) < DC_F64_ATOL, f"the matmul DC solve in float64 vs the fft solve: {f64}")
+    runs = {f: [] for f in forms}
+    for f in (*forms, *reversed(forms)):
+        runs[f].append(cuda_ms(lambda: solve(f, y, mask), reps=2))
+    dc_ms = {f: statistics.mean(v) for f, v in runs.items()}
+    res["dc_forms"] = {"quality": dc_q, "f64_vs_fft": f64, "solve_ms": dc_ms, "runs_ms": runs}
+    log(f"catalog (c): admm_l1 at {B} x {H} x {W} x {ITERS}, float32 (K1 {ITERS} launches a solve): "
+        f"{json.dumps(dc_q)}; float64 at 4 x {H} x W against the fft solve: {json.dumps(f64)}; ms a solve "
+        f"(CUDA events, in turns fft, matmul, matmul, fft): {json.dumps(runs)}")
+
+    # (d) resolve_dc_method on the card
+    resolved = {f"{n}x{n}": fourier.resolve_dc_method("auto", torch.zeros(1, n, n, dtype=torch.complex64,
+                                                                           device=dev)) for n in (256, 2048)}
+    check(resolved == {"256x256": "fft", "2048x2048": "fft"}, f"resolve_dc_method('auto') on the card: {resolved}")
+    res["resolve_dc_method"] = resolved
+    log(f"catalog (d): resolve_dc_method('auto') on the card: {json.dumps(resolved)}")
+
+    # (e) the image readers: the fixtures, then a testset of .png-named BMP and JPEG payloads through the CLI
+    fix = os.path.join(ROOT, FIXTURES)
+    with np.load(os.path.join(fix, "pixels.npz")) as zf:
+        stored = {k: zf[k] for k in zf.files}
+    names = sorted({k.split("/")[0] for k in stored})
+    for name in names:
+        path = os.path.join(fix, name)
+        check(np.array_equal(images.imread_gray(path), stored[f"{name}/gray"]), f"fixture {name}: gray pixels differ")
+        if f"{name}/rgb" in stored:
+            check(np.array_equal(images.imread_uint(path, 3), stored[f"{name}/rgb"]), f"fixture {name}: RGB differs")
+    mixed, plain = os.path.join(tdir, "mixed"), os.path.join(tdir, "mixed_png")
+    os.makedirs(mixed)
+    ph = phantom.mri_phantoms(10, H, seed=24)
+    want = {}  # each file's pixels as cv2 reads it: the BMPs' by OpenCV's rule, the JPEGs' stored
+    for k in range(10):
+        u8 = np.uint8(np.clip(ph[k] * 255.0, 0, 255).round())
+        # five colour BMPs (gray by OpenCV's rule) and five gray-palette ones
+        rgb = np.stack([u8, np.uint8(u8 * 0.9), np.uint8(u8 * 0.8)], axis=-1).astype(np.int32)
+        want[f"{k + 1:02d}.png"] = u8 if k % 2 else np.uint8(
+            (1868 * rgb[..., 2] + 9617 * rgb[..., 1] + 4899 * rgb[..., 0] + 8192) >> 14)
+        write_bmp(os.path.join(mixed, f"{k + 1:02d}.png"), u8 if k % 2 else rgb.astype(np.uint8))
+    jpegs = sorted(n for n in names if n.startswith("testset"))
+    check(len(jpegs) == 5, f"the JPEG fixtures of the testset: {jpegs}")
+    for k, name in enumerate(jpegs):
+        shutil.copyfile(os.path.join(fix, name), os.path.join(mixed, f"{k + 11:02d}.png"))
+        want[f"{k + 11:02d}.png"] = stored[f"{name}/gray"]
+    t_r = time.perf_counter()
+    decoded = {os.path.basename(p): images.imread_gray(p) for p in sorted(glob.glob(os.path.join(mixed, "*.png")))}
+    read_s = time.perf_counter() - t_r
+    check(decoded.keys() == want.keys() and all(np.array_equal(decoded[n], want[n]) for n in want),
+          "the BMP/JPEG testset does not read as cv2 reads it")
+    for n, u8 in want.items():
+        images.imsave(u8.astype(np.float64), os.path.join(plain, n))
+    lines = {}
+    for tag, ts in (("mixed", "mixed"), ("png", "mixed_png")):
+        argv = ["admm_l1", "--testset", ts, "--testsets_dir", tdir, "--data_dir", ddir,
+                "--results_dir", os.path.join(tmp, "catalog_readers", tag)]
+        lines[tag] = json.loads(counted(f"cli_admm_l1_{tag}", lambda: _run_main(cli_main.main, argv))[-1])
+        check(res["launches"][f"cli_admm_l1_{tag}"] == {"l1_tail": ITERS, "cnc_tail": 0, "fused_iteration": 0},
+              f"cli admm_l1 on {ts}: launches {res['launches'][f'cli_admm_l1_{tag}']}")
+    check(lines["mixed"]["images"] == 15 and lines["mixed"]["per_image_psnr"] == lines["png"]["per_image_psnr"],
+          f"admm_l1 on the BMP/JPEG testset {lines['mixed']['per_image_psnr']} vs its PNG copy "
+          f"{lines['png']['per_image_psnr']}")
+    logs = {}
+    for tag in lines:
+        [path] = glob.glob(os.path.join(tmp, "catalog_readers", tag, "*", "*.log"))
+        with open(path) as f:
+            logs[tag] = [re.match(LOG_LINE, ln).groups() for ln in f.read().splitlines()[:15]]
+    check(logs["mixed"] == logs["png"], "the .log's PSNR lines differ between the BMP/JPEG testset and its PNGs")
+    res["readers"] = {"fixtures": len(names), "testset_read_s": read_s, "psnr_db": lines["mixed"]["psnr"],
+                      "wall_s": lines["mixed"]["wall_s"]}
+    log(f"catalog (e): {len(names)} fixtures decode to their stored cv2 pixels; a 15-image testset of .png-named "
+        f"BMP (10) and JPEG (5) payloads read in {read_s:.3f} s as cv2 reads them and solved by cli.main admm_l1 "
+        f"on the card: PSNR lines equal to those of its cv2 pixels as PNG ({lines['mixed']['psnr']:.4f} dB)")
+    return res
 
 
 # -- distributed: the multi-device path (parallel/, the sharded sweep, multihost, the dp x tp trainer) --
@@ -2660,6 +3001,10 @@ def main() -> dict:
         rates["cli"] = phase_cli(dev, tmp, tdir, ddir)
         phase("cli", t)
         t = time.perf_counter()
+        cat_res = phase_catalog(dev, tmp, tdir, ddir, img_np, y, mask)
+        rates["catalog"] = {k: v for k, v in cat_res.items() if k != "launches"}
+        phase("catalog", t)
+        t = time.perf_counter()
         dist_res = phase_distributed(dev, tmp, tdir, ddir, img_np, sweep_res)
         phase("distributed", t)
     finally:
@@ -2690,6 +3035,7 @@ def main() -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
             "distributed_launches": {k: v[0][name] for k, v in dist_res["launches"]["w1"].items()},
+            "catalog_launches": {k: v[name] for k, v in cat_res["launches"].items()},
         })
     # the fused iteration at the path's shape, from the scenario's initial state
     for label, design in (("admm_l1_fused_kernel", None), ("admm_l1_fused_kernel_strips", "strips")):
@@ -2741,6 +3087,7 @@ def main() -> dict:
             "bound_by": "bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
             "library_ms": None,
             "distributed_launches": {k: v[0]["fused_iteration"] for k, v in dist_res["launches"]["w1"].items()},
+            "catalog_launches": {k: v["fused_iteration"] for k, v in cat_res["launches"].items()},
         })
     log(f"timing: {json.dumps(rates)}")
     phase("timing", t)

@@ -14,7 +14,8 @@ integer indices edited in module bodies, reference ``【3】:375-378``):
 Every run takes the CUDA card; without one it stops, unless ``--cpu`` asks
 for the CPU. ``--f64`` runs in float64 (complex128), on the card or the
 CPU; ``--bf16`` runs the denoisers' convolutions in bfloat16. Weights are
-the ``.npz`` trees of ``model_zoo/`` (``--weights``, ``--clean``).
+the ``.npz`` trees of ``model_zoo/`` or the reference's KAIR ``.pth``
+checkpoints (``--weights``, ``--weights2``, ``--clean``).
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tol", type=float, default=None, help="optional stop tolerance")
     p.add_argument("--model", default="dncnn_25", help="denoiser model name")
     p.add_argument("--model2", default=None, help="second denoiser (CNC slot 2)")
-    p.add_argument("--weights", default=None, help=".npz weights path")
+    p.add_argument("--weights", default=None, help=".pth or .npz weights path")
     p.add_argument("--weights2", default=None)
     p.add_argument("--testsets_dir", default=None)
     p.add_argument("--data_dir", default=None)

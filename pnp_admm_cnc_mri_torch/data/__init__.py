@@ -1,1 +1,2 @@
-"""Inputs (numpy): images and their PNG I/O, sampling masks (generated or loaded from ``.mat``), k-space noise and phantoms."""
+"""Inputs (numpy): images and their readers (PNG, BMP, PPM/PGM, TIFF, JPEG),
+sampling masks (generated or loaded from ``.mat``), k-space noise and phantoms."""

@@ -1,22 +1,31 @@
 """Image I/O and conversions of the reference's per-image pipeline (numpy).
 
 A copy of the JAX package's ``data/images.py`` with its cv2 calls replaced
-by a PNG codec of the standard library (``zlib``, ``struct``). Reference
-pipeline (``【1】ADMM_L1.py:85-90``): read a PNG as grayscale,
+by readers of the standard library (``zlib``, ``struct``), numpy and PIL.
+Reference pipeline (``【1】ADMM_L1.py:85-90``): read an image as grayscale,
 ``modcrop(·, 8)``, uint8 to [0, 1] float, and the uint8 clip round-trip
 (``use_clip``); conversions as ``utils/utils_image.py:145-194``.
 
-The reader takes every standard PNG form: grayscale at 1, 2, 4, 8 and 16
-bits, palette (with or without a ``tRNS`` chunk), RGB, RGBA and grayscale
-with alpha at 8 and 16 bits, every row filter, plain or Adam7-interlaced.
 ``imread_gray`` gives the pixels of ``cv2.imread(path, IMREAD_GRAYSCALE)``
-(cv2 5.0 with libpng 1.6): sub-byte gray scales to 0-255, 16 bits keep
-their high byte, alpha and ``tRNS`` are dropped, and colour goes to gray as
-libpng's ``png_set_rgb_to_gray`` does (``_rgb_to_gray_png``).
-``imread_uint(path, 3)`` gives ``IMREAD_UNCHANGED`` plus ``cvtColor`` to RGB;
-``channel_convert`` has cv2's ``COLOR_BGR2GRAY``. JPEG, BMP, PPM and TIFF
-files raise a ``ValueError`` that names the format. The writer writes 8-bit
-grayscale PNG, all that ``imsave`` writes.
+(cv2 5.0) and ``imread_uint(path, 3)`` those of ``IMREAD_UNCHANGED`` plus
+``cvtColor`` to RGB, for a file of any of these formats, told by its first
+bytes and never by its name (the reference's testsets hold BMP and JPEG
+payloads under ``.png`` names):
+
+- PNG, every standard form: grayscale at 1, 2, 4, 8 and 16 bits, palette
+  (with or without ``tRNS``), RGB, RGBA and grayscale with alpha at 8 and
+  16 bits, every row filter, plain or Adam7-interlaced. Sub-byte gray scales
+  to 0-255, 16 bits keep their high byte, alpha and ``tRNS`` are dropped,
+  and colour goes to gray as libpng's ``png_set_rgb_to_gray`` does
+  (``_rgb_to_gray_png``);
+- JPEG and BMP (through PIL), PPM/PGM and TIFF (``data/formats.py``),
+  where colour goes to gray by OpenCV's own fixed-point rule.
+
+Kinds the readers do not take (arithmetic-coded, lossless or 12-bit JPEG,
+tiled or JPEG-compressed TIFF, RLE BMP, PBM, ...) raise a
+``ValueError`` that names them. ``channel_convert`` has cv2's
+``COLOR_BGR2GRAY``. The writer writes 8-bit grayscale PNG, all that
+``imsave`` writes.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 
+from pnp_admm_cnc_mri_torch.data.formats import Raster, decode_bmp, decode_jpeg, decode_pnm, decode_tiff
 from pnp_admm_cnc_mri_torch.data.noise import DEFAULT_DATA_DIR
 
 IMG_EXTENSIONS = (
@@ -47,10 +57,6 @@ _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 # the seven Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
-# the other formats of IMG_EXTENSIONS, told by their first bytes
-_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
-                  *((b"P" + str(k).encode(), "PPM (Netpbm)") for k in range(1, 7)))
-
 
 class PNG(NamedTuple):
     """A decoded PNG: ``samples`` (H, W, C) uint8 (depth <= 8, sub-byte
@@ -134,18 +140,11 @@ def _unpack(rows: np.ndarray, n: int, depth: int) -> np.ndarray:
     return (bits * weights).sum(axis=2, dtype=np.uint8)[:, :n]
 
 
-def _other_format(data: bytes, what: str) -> ValueError:
-    form = next((name for magic, name in _OTHER_FORMATS if data.startswith(magic)), None)
-    named = f" (a {form} file)" if form else ""
-    return ValueError(f"{what}: not a PNG file{named}; the reader takes PNG only")
-
-
 def decode_png(data: bytes, what: str = "PNG") -> PNG:
     """Decode a PNG of any standard form: every colour type and bit depth,
-    every row filter, plain or Adam7-interlaced. Other formats raise a
-    ``ValueError`` that names them."""
+    every row filter, plain or Adam7-interlaced."""
     if data[:8] != _PNG_SIGNATURE:
-        raise _other_format(data, what)
+        raise ValueError(f"{what}: not a PNG file")
     header, palette, idat = None, None, []
     for ctype, body in _png_chunks(data, what):
         if ctype == b"IHDR":
@@ -225,18 +224,51 @@ def get_image_paths(dirpath: str) -> List[str]:
     return sorted(paths)
 
 
-def _read_png(path: str) -> PNG:
+def _png_raster(png: PNG) -> Raster:
+    s = png.samples
+    if png.color == 3:
+        rgb = png.palette[s[..., 0]]
+    elif png.color in (2, 6):
+        rgb = s[..., :3].copy()
+    else:
+        rgb = s[..., :1] if png.depth >= 8 else s[..., :1] * np.uint8(255 // ((1 << png.depth) - 1))
+    return Raster(rgb, _gray8(png))
+
+
+def decode_image(data: bytes, what: str = "image", gray: bool = True) -> np.ndarray:
+    """Decode an image file's bytes by its first bytes, never its name: PNG,
+    JPEG, BMP, PPM/PGM or TIFF (the reference's testsets hold BMP and JPEG
+    payloads under ``.png`` names). For ``gray``, the (H, W) uint8 pixels of
+    ``IMREAD_GRAYSCALE``; else the (H, W, 1) or (H, W, 3) samples of
+    ``IMREAD_UNCHANGED`` in RGB order, alpha dropped, uint8 or uint16. Kinds
+    the readers do not take raise a ``ValueError`` that names them."""
+    if data[:3] == b"\xff\xd8\xff":
+        return decode_jpeg(data, what, gray)
+    if data[:2] == b"BM":
+        return decode_bmp(data, what, gray)
+    if data[:8] == _PNG_SIGNATURE:
+        raster = _png_raster(decode_png(data, what))
+    elif data[:4] in (b"II*\x00", b"MM\x00*"):
+        raster = decode_tiff(data, what)
+    elif data[:1] == b"P" and data[1:2] in (b"1", b"2", b"3", b"4", b"5", b"6", b"7"):
+        raster = decode_pnm(data, what)
+    else:
+        raise ValueError(f"{what}: not an image file of a known format (PNG, JPEG, BMP, PPM/PGM, TIFF)")
+    return raster.gray if gray else raster.samples
+
+
+def _read(path: str, gray: bool) -> np.ndarray:
     if not os.path.isfile(path):
         raise FileNotFoundError(path)
     with open(path, "rb") as f:
-        return decode_png(f.read(), path)
+        return decode_image(f.read(), path, gray)
 
 
 def imread_gray(path: str) -> np.ndarray:
     """Read one image as uint8 grayscale (H, W): the reference's
     ``cv2.imread(path, 0)`` (``utils_image.py:145-151``), to the same pixels
-    for every PNG form (see the module docstring)."""
-    return _gray8(_read_png(path))
+    for every form the readers take (see the module docstring)."""
+    return _read(path, gray=True)
 
 
 def modcrop(img: np.ndarray, scale: int = 8) -> np.ndarray:
@@ -330,14 +362,8 @@ def imread_uint(path: str, n_channels: int = 3) -> np.ndarray:
     give, alpha dropped, 16-bit samples kept as uint16."""
     if n_channels == 1:
         return imread_gray(path)[..., None]
-    png = _read_png(path)
-    s = png.samples
-    if png.color == 3:
-        return png.palette[s[..., 0]]
-    if png.color in (2, 6):
-        return s[..., :3].copy()
-    g = s[..., :1] if png.depth >= 8 else s[..., :1] * np.uint8(255 // ((1 << png.depth) - 1))
-    return np.repeat(g, 3, axis=-1)
+    s = _read(path, gray=False)
+    return np.repeat(s, 3, axis=-1) if s.shape[-1] == 1 else s
 
 
 def uint162single(img: np.ndarray) -> np.ndarray:

@@ -165,6 +165,55 @@ def rfft_blend_fields(y: torch.Tensor, mask: torch.Tensor, rho):
     return a_full[..., :half].contiguous(), c_full[..., :half].contiguous()
 
 
+def _packed_dc_mats(h: int, w: int, dtype: torch.dtype, device=None):
+    """The DFT matrices of the Nyquist-packed matmul solve (even W).
+
+    The rfft half-grid is ``w // 2 + 1`` wide (129 at 256²). For even W the
+    row transform's DC (k = 0) and Nyquist (k = W/2) outputs are both real,
+    and the sine matrix's DC column (``sin 0 = 0``) computes nothing, so the
+    Nyquist column rides in that slot through edits made once:
+
+    - forward: ``swf[:, 0] = -(-1)^j`` makes ``xi[..., 0]`` the real Nyquist
+      column, so the H-axis complex DFT of column 0 computes
+      ``DFT(DC + i Nyq)``, two real transforms in one, split again by
+      Hermitian symmetry;
+    - inverse: ``swi[0, :] = -(-1)^w`` makes the otherwise dead imaginary
+      slot of column 0 synthesize the Nyquist term ``x~_nyq (-1)^w``.
+
+    Also returns ``ch - sh`` and ``ch + sh`` for the 3-product (Karatsuba)
+    complex products along H: ``(C - iS)(xr + i xi)`` needs only ``C xr``,
+    ``S xi`` and ``(C - S)(xr + xi)``.
+    """
+    cw, sw = _dft_mats(w, dtype, device)
+    ch, sh = (cw, sw) if h == w else _dft_mats(h, dtype, device)
+    whp = w // 2
+    alt = cw[:, whp]  # cos(pi j) = (-1)^j
+    swf = sw[:, :whp].clone()
+    swf[:, 0] = -alt
+    swi = sw[:whp, :].clone()
+    swi[0, :] = -alt
+    return cw[:, :whp], swf, ch, sh, ch - sh, ch + sh, cw[:whp, :], swi
+
+
+def resolve_dc_method(method: str, y) -> str:
+    """The data-consistency method that ``method`` names: ``'auto'`` gives
+    ``'fft'``, on the CPU as in the JAX package and on the card too; any
+    other name of ``DC_METHODS`` is returned as it is. ``y`` (the
+    observations) keeps the JAX signature; the port's rule needs nothing of it.
+
+    The JAX package's rule on an accelerator ('matmul' up to 1024 pixels a
+    side: the DFT as matrix products on the TPU's matrix unit, faster than
+    the TPU's FFT there) does not carry over: on the H100 the matmul forms
+    are float32 products on the CUDA cores (TF32 stays off), against cuFFT.
+    ``chip_smoke.py``'s catalog phase timed ``admm_l1`` at 512 x 256² x 50,
+    float32, on an NVIDIA H100 80GB HBM3 at 700 W: 65.8 ms a solve with
+    'fft', 207.5 to 211.3 ms with 'matmul' (the packed Karatsuba form).
+    """
+    if method not in DC_METHODS:
+        raise ValueError(f"unknown dc_method {method!r}; expected one of {DC_METHODS}")
+    return "fft" if method == "auto" else method
+
+
 def make_rfft_data_consistency(y: torch.Tensor, mask: torch.Tensor, rho, method: str = "fft"):
     """Half-spectrum (rfft) data-consistency solve: half the FFT work.
 
@@ -177,20 +226,23 @@ def make_rfft_data_consistency(y: torch.Tensor, mask: torch.Tensor, rho, method:
 
     with ``m~(k) = m(-k)`` (``rfft_blend_fields``). A and C are computed once; each iteration is
     rfft2, one multiply-add and irfft2. ``method='matmul'`` runs the
-    transforms as matrix products (``matmul_rfft2``/``matmul_irfft2``,
-    under ``full_precision_matmul``); ``'auto'`` means ``'fft'`` in this
-    package.
+    transforms as matrix products under ``full_precision_matmul``: for even
+    W the Nyquist-packed form with Karatsuba products
+    (``_make_packed_matmul_dc``), for odd W, which has no Nyquist bin, the
+    unpacked ``matmul_rfft2``/``matmul_irfft2``. ``'auto'`` means ``'fft'``
+    (``resolve_dc_method``).
 
     Returns ``dc(v) -> x`` for real v of shape (..., H, W).
     """
-    if method not in DC_METHODS:
-        raise ValueError(f"unknown dc_method {method!r}; expected one of {DC_METHODS}")
+    method = resolve_dc_method(method, y)
     h, w = mask.shape[-2:]
     a_half, c_half = rfft_blend_fields(y, mask, rho)
 
     if method == "matmul":
         dt = y.real.dtype
         cr, ci = c_half.real.contiguous(), c_half.imag.contiguous()
+        if w % 2 == 0:
+            return _make_packed_matmul_dc(a_half, cr, ci, h, w, dt)
         cw, sw = _dft_mats(w, dt, y.device)
         mats = (cw, sw, cw, sw) if h == w else (cw, sw, *_dft_mats(h, dt, y.device))
 
@@ -208,5 +260,61 @@ def make_rfft_data_consistency(y: torch.Tensor, mask: torch.Tensor, rho, method:
         vf = torch.fft.rfft2(v, dim=(-2, -1))
         hf = a_half * vf + c_half
         return torch.abs(torch.fft.irfft2(hf, s=(h, w), dim=(-2, -1)))
+
+    return dc
+
+
+def _make_packed_matmul_dc(a_half, cr, ci, h: int, w: int, dt):
+    """The Nyquist-packed matmul solve (even W; ``_packed_dc_mats``), with
+    the H-axis complex products in 3 matrix products instead of 4
+    (Karatsuba). The same math as the unpacked matmul path, equal in exact
+    arithmetic.
+
+    Column 0 of the half-grid arrays carries the packed pair
+    ``DC + i Nyquist``; the blend unpacks it by Hermitian split (both blended
+    columns are Hermitian along H: ``a(-k) = a(k)``, ``c(-k) = conj(c(k))``
+    there), so the inverse H-transform of the re-packed column is exactly
+    ``x~_dc + i x~_nyq`` with both parts real.
+    """
+    whp = w // 2
+    pmats = _packed_dc_mats(h, w, dt, a_half.device)
+    a_w, cr_w, ci_w = a_half[..., :whp], cr[..., :whp], ci[..., :whp]
+    a0, an = a_half[..., 0], a_half[..., -1]
+    c0r, c0i, cnr, cni = cr[..., 0], ci[..., 0], cr[..., -1], ci[..., -1]
+
+    def rev(p):  # the index m -> (-m) mod h along the trailing axis
+        return torch.roll(torch.flip(p, dims=(-1,)), 1, -1)
+
+    def dc(v: torch.Tensor) -> torch.Tensor:
+        cwf, swf, ch, sh, cms, cps, cwi, swi = (m.to(v.dtype) for m in pmats)
+        with full_precision_matmul():
+            # W axis: the real DFT on W/2 columns; xi[..., 0] is the Nyquist column
+            xr = v @ cwf
+            xi = -(v @ swf)
+            # H axis: y = (C - iS)(xr + i xi)
+            m1, m2, m3 = ch @ xr, -(sh @ xi), cms @ (xr + xi)
+            yr, yi = m1 - m2, m3 - m1 - m2
+            # unpack column 0, P = DC + i Nyq, by Hermitian split along H
+            pr, pi = yr[..., 0], yi[..., 0]
+            prr, pir = rev(pr), rev(pi)
+            dcr, dci = 0.5 * (pr + prr), 0.5 * (pi - pir)
+            nqr, nqi = 0.5 * (pi + pir), 0.5 * (prr - pr)
+            # blend both real-pair columns and re-pack Q = H0 + i HN
+            h0r, h0i = a0 * dcr + c0r, a0 * dci + c0i
+            hnr, hni = an * nqr + cnr, an * nqi + cni
+            br = (a_w * yr + cr_w).to(v.dtype)
+            bi = (a_w * yi + ci_w).to(v.dtype)
+            br[..., 0] = h0r - hni
+            bi[..., 0] = h0i + hnr
+            # inverse H axis: x~ = (C^T + iS^T)(br + i bi) / h
+            n1, n2, n3 = ch.mT @ br, sh.mT @ bi, cps.mT @ (br + bi)
+            tr, ti = (n1 - n2) / h, (n3 - n1 - n2) / h
+            # W synthesis: interior bins count twice; slot 0 holds DC in tr
+            # (row 0 of cwi is ones) and Nyquist in ti (the swi edit, through
+            # the minus sign)
+            wk = torch.full((whp,), 2.0, dtype=v.dtype, device=v.device)
+            wk[0] = 1.0
+            out = ((tr * wk) @ cwi - (ti * wk) @ swi) / w
+        return torch.abs(out)
 
     return dc

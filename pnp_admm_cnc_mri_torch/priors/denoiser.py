@@ -28,6 +28,7 @@ reduced-precision pass costs reconstruction PSNR.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import warnings
 from typing import Callable, Optional
@@ -123,30 +124,35 @@ def nlm_for_model(model_name: str, nlm255: Optional[float]) -> Optional[float]:
 def resolve_weights(model_name: str, weights: Optional[str] = None, model_zoo: Optional[str] = None,
                     clean: bool = False) -> Optional[str]:
     """The weights file of a model name: an explicit ``weights`` wins, else
-    ``<model_zoo>/<model_name>.npz`` (``_clean.npz`` first with ``clean``,
-    the weights trained without the evaluation images; falling back to the
-    plain file with a warning). None when nothing is found. The port reads
-    ``.npz`` trees only; the zoo holds nothing else."""
+    ``<model_zoo>/<model_name>.npz``, then ``.pth`` (the reference's KAIR
+    checkpoints); ``_clean`` first with ``clean``, the weights trained
+    without the evaluation images, falling back to the plain name with a
+    warning. None when nothing is found."""
     if weights is not None:
         return weights
     zoo = model_zoo or DEFAULT_MODEL_ZOO
     for name in ([model_name + "_clean"] if clean else []) + [model_name]:
-        cand = os.path.join(zoo, name + ".npz")
-        if os.path.exists(cand):
-            if clean and name == model_name:
-                warnings.warn(f"no clean weights for {model_name}; falling back to the testset-trained {cand}",
-                              stacklevel=2)
-            return cand
+        for ext in (".npz", ".pth"):
+            cand = os.path.join(zoo, name + ext)
+            if os.path.exists(cand):
+                if clean and name == model_name:
+                    warnings.warn(f"no clean weights for {model_name}; falling back to the testset-trained {cand}",
+                                  stacklevel=2)
+                return cand
     return None
 
 
-def _tree(weights: Optional[str], params):
-    """The Flax tree to load: ``params`` as given, else read from ``weights``."""
+def _tree(weights: Optional[str], params, converter):
+    """The Flax tree to load: ``params`` as given, else read from
+    ``weights``: a ``.npz`` tree as it is, any other file as a torch
+    checkpoint through ``converter`` (``models/convert.py``)."""
     if params is not None or weights is None:
         return params
-    if not weights.endswith(".npz"):
-        raise ValueError(f"{weights!r}: the port reads the .npz weight trees of model_zoo/ only")
-    return convert.load_npz(weights)
+    if weights.endswith(".npz"):
+        return convert.load_npz(weights)
+    if converter is None:
+        raise ValueError(f"{weights!r}: this model has no torch checkpoint layout; give its .npz tree")
+    return converter(convert.load_state_dict(weights))
 
 
 def _random_init_warning(what: str):
@@ -210,10 +216,12 @@ def build_denoiser(
     """``denoise(v, i)`` for a reference model name, on ``device`` (None:
     the CUDA card; the CPU only when asked for).
 
-    ``weights``: a ``.npz`` Flax tree (``model_zoo/``); ``params``: such a
-    tree already loaded (nested dicts of arrays under ``"params"``). With
-    neither and ``allow_random_init``, the weights are drawn from a
-    ``torch.Generator`` seeded with 0, with a warning. ``noises``: the
+    ``weights``: a ``.npz`` Flax tree (``model_zoo/``) or the reference's
+    KAIR ``.pth`` checkpoint (dncnn, fdncnn, ffdnet, the ircnn bundle of 25,
+    drunet; ``models/convert.py``); ``params``: a Flax tree already loaded
+    (nested dicts of arrays under ``"params"``). With neither and
+    ``allow_random_init``, the weights are drawn from a ``torch.Generator``
+    seeded with 0, with a warning. ``noises``: the
     complex k-space noise, fdncnn's map channel when ``noise_level_model``
     is None. ``noise_level_model`` is on [0, 1] for ircnn, drunet and tdnet
     and on [0, 255] for ffdnet and fdncnn (``nlm_for_model``). ``nc``/``nb``
@@ -226,15 +234,14 @@ def build_denoiser(
     name = model_name.lower()
     device = resolve_device(device)
     work = compute_dtype or param_dtype
-    tree = _tree(weights, params)
 
-    def ready(model):
-        return _ready(model, tree, allow_random_init, param_dtype, work, device)
+    def ready(model, converter):
+        return _ready(model, _tree(weights, params, converter), allow_random_init, param_dtype, work, device)
 
     if "dncnn" in name and "fdncnn" not in name:
         if nb is None:
             nb = 20 if name in ("dncnn_gray_blind", "dncnn_color_blind", "dncnn3") else 17
-        model = ready(DnCNN(1, 1, nc=nc, nb=nb))
+        model = ready(DnCNN(1, 1, nc=nc, nb=nb), functools.partial(convert.convert_dncnn, nb=nb))
 
         def denoise(v, i):
             x, restore = _as_nchw(v, work)
@@ -252,7 +259,7 @@ def build_denoiser(
             )
         else:
             noise_map = torch.as_tensor(np.abs(noises) / 255.0, dtype=work, device=device)
-        model = ready(FDnCNN(2, 1, nc=nc, nb=nb or 20))
+        model = ready(FDnCNN(2, 1, nc=nc, nb=nb or 20), functools.partial(convert.convert_fdncnn, nb=nb or 20))
 
         def denoise(v, i):
             x, restore = _as_nchw(v, work)
@@ -263,6 +270,7 @@ def build_denoiser(
     elif "ircnn" in name:
         model = IRCNN(1, 1, nc=nc).to(param_dtype)
         idx = schedules.ircnn_sigma_indices(_sigma_ladder(iter_num, noise_level_model, model_sigma1))
+        tree = _tree(weights, params, convert.convert_ircnn_bundle)
         if tree is not None:
             sd = convert.state_dict_from_flax(model, tree, param_dtype, lead=(25,))
         elif allow_random_init:
@@ -280,7 +288,7 @@ def build_denoiser(
                 return restore(torch.func.functional_call(model, {n: t[k] for n, t in stacked.items()}, (x,)))
 
     elif "ffdnet" in name:
-        model = ready(FFDNet(1, 1, nc=nc, nb=nb or 15))
+        model = ready(FFDNet(1, 1, nc=nc, nb=nb or 15), functools.partial(convert.convert_ffdnet, nb=nb or 15))
         nlm = 15.0 if noise_level_model is None else noise_level_model
         sig = torch.tensor(nlm / 255.0, dtype=work, device=device)
 
@@ -290,7 +298,8 @@ def build_denoiser(
                 return restore(model(x, sig))
 
     elif "drunet" in name:
-        model = ready(UNetRes(2, 1, nc=(nc, nc * 2, nc * 4, nc * 8), nb=nb or 4))
+        model = ready(UNetRes(2, 1, nc=(nc, nc * 2, nc * 4, nc * 8), nb=nb or 4),
+                      functools.partial(convert.convert_drunet, nb=nb or 4))
         sigmas = _sigma_ladder(iter_num, noise_level_model, model_sigma1)
 
         def core(x, i):
@@ -309,7 +318,7 @@ def build_denoiser(
     elif "tdnet" in name:
         # nc keeps its 64 default for the reference models; TDNet's own
         # width applies unless another width is asked for
-        model = ready(TDNet(1, 1, nc=nc if nc != 64 else 128, nb=nb or 12))
+        model = ready(TDNet(1, 1, nc=nc if nc != 64 else 128, nb=nb or 12), None)
         sigmas = torch.as_tensor(_sigma_ladder(iter_num, noise_level_model, model_sigma1), dtype=work,
                                  device=device)
 

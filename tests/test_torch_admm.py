@@ -270,8 +270,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_port_imports_scipy_only_lazily():
-    """scipy is taken inside the functions that need it (the ``.mat``
-    loaders and the colored-noise helpers), never at a module's import."""
+    """scipy and matplotlib are taken inside the functions that need them
+    (the ``.mat`` loaders and the colored-noise helpers; ``imshow`` and
+    ``surf``), never at a module's import."""
     top = []
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)
@@ -284,7 +285,8 @@ def test_port_imports_scipy_only_lazily():
                 mods = [node.module or ""]
             else:
                 continue
-            top += [f"{path}:{node.lineno} {m}" for m in mods if m.split(".")[0] == "scipy" and id(node) not in lazy]
+            top += [f"{path}:{node.lineno} {m}" for m in mods
+                    if m.split(".")[0] in ("scipy", "matplotlib") and id(node) not in lazy]
     assert not top, top
 
 

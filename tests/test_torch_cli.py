@@ -31,6 +31,7 @@ import os
 import re
 import warnings
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -254,3 +255,46 @@ def test_helpers_match_the_jax_clis():
         pcfg = pmain._merge_cfg(pmain._apply_tuned(pconfig.ADMM_CNC_DEFAULT, tuned, pa), pa)
         jcfg = jmain._merge_cfg(jmain._apply_tuned(jconfig.ADMM_CNC_DEFAULT, tuned, ja), ja)
         assert pa.nlm == ja.nlm and dataclasses.asdict(pcfg) == dataclasses.asdict(jcfg)
+
+
+def test_kair_pth_weights_through_both_clis(tmp_path):
+    """``--weights`` takes the reference's KAIR ``.pth``: a DnCNN checkpoint
+    in its key layout (``model.{2i}.weight`` / ``.bias``) gives the JAX CLI's
+    lines, float64, and the port's lines from the same weights as an npz."""
+    g = torch.Generator().manual_seed(3)
+    shapes = [(8, 1)] + [(8, 8)] + [(1, 8)]
+    sd = {}
+    for i, (o, c) in enumerate(shapes):
+        sd[f"model.{2 * i}.weight"] = torch.randn(o, c, 3, 3, generator=g) * (9 * c) ** -0.5
+        sd[f"model.{2 * i}.bias"] = torch.randn(o, generator=g) * 0.01
+    pth = str(tmp_path / "dncnn_kair.pth")
+    torch.save(sd, pth)
+    argv = ["pnp_l1_d", "--model", "dncnn_25", "--nc", "8", "--nb", "3", "--iter_num", "4", "--f64"]
+    got, ref, pdir, jdir = run_both(tmp_path, [*argv, "--weights", pth])
+    check_same(got, ref, pdir, jdir)
+    from pnp_admm_cnc_mri_torch.models import dncnn
+
+    net = dncnn.DnCNN(1, 1, nc=8, nb=3)
+    net.load_state_dict(convert.state_dict_from_flax(net, convert.convert_dncnn(sd, nb=3)))
+    npz = str(tmp_path / "dncnn.npz")
+    convert.save_npz(net, npz)
+    tdir, ddir = write_assets(str(tmp_path / "again"))
+    rc, via_npz = run_cli(pmain.main, [*argv, "--weights", npz, "--cpu", "--testsets_dir", tdir, "--data_dir", ddir,
+                                       "--results_dir", str(tmp_path / "npz")])
+    assert rc == 0 and via_npz["per_image_psnr"] == got["per_image_psnr"]
+
+
+def test_testset_of_bmp_and_jpeg_payloads_through_both_clis(tmp_path):
+    """A testset laid out as the reference's, ``.png`` names over BMP and
+    JPEG payloads, solves in the port's CLI as in the JAX CLI (float64)."""
+    tdir, ddir = write_assets(str(tmp_path / "assets"))
+    set1 = os.path.join(tdir, "set1")
+    for k, name in enumerate(sorted(os.listdir(set1))):
+        img = cv2.imread(os.path.join(set1, name), cv2.IMREAD_GRAYSCALE)
+        if k == 0:
+            img = cv2.merge([img, np.uint8(img * 0.9), np.uint8(img * 0.8)])  # a colour BMP
+        ext, params = ((".bmp", []), (".jpg", [cv2.IMWRITE_JPEG_QUALITY, 90]), (".jpg", []))[k]
+        with open(os.path.join(set1, name), "wb") as f:
+            f.write(cv2.imencode(ext, img, params)[1].tobytes())
+    got, ref, pdir, jdir = run_both(tmp_path, ["admm_l1", "--f64"], assets=(tdir, ddir))
+    check_same(got, ref, pdir, jdir)

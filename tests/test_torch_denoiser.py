@@ -262,8 +262,8 @@ def test_construction_refusals(monkeypatch):
         dn.build_denoiser("fdncnn_gray", nc=4, nb=3, device=CPU)
     with pytest.raises(ValueError, match="unknown denoiser"):
         dn.build_denoiser("bm3d", device=CPU)
-    with pytest.raises(ValueError, match=".npz"):
-        dn.build_denoiser("dncnn_25", weights="dncnn_25.pth", device=CPU)
+    with pytest.raises(ValueError, match=".npz"):  # TDNet has no KAIR checkpoint layout
+        dn.build_denoiser("tdnet", weights="tdnet.pth", device=CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dn.build_denoiser("dncnn_25", nc=4, nb=3)

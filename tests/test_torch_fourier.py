@@ -124,27 +124,30 @@ def test_auto_means_fft_and_unknown_methods_raise():
 
 def test_tf32_is_off_for_the_dft_products(monkeypatch):
     """The matmul DC's DFT products run at full float32 precision even when
-    the caller allows TF32, and the caller's setting is back afterwards."""
-    img, mask, _, y = _scenario(np.float32, seed=5)
-    dc = fourier.make_rfft_data_consistency(_t(y), _t(mask), 0.05, method="matmul")
+    the caller allows TF32, in both forms (packed at even W, unpacked at odd
+    W), and the caller's setting is back afterwards."""
     seen = []
-    for name in ("matmul_rfft2", "matmul_irfft2"):
-        orig = getattr(fourier, name)
+    orig = torch.Tensor.__matmul__
 
-        def spy(*a, _orig=orig, **k):
-            seen.append(torch.backends.cuda.matmul.allow_tf32)
-            return _orig(*a, **k)
+    def spy(a, b):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return orig(a, b)
 
-        monkeypatch.setattr(fourier, name, spy)
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        dc(_t(img))
-        after = torch.backends.cuda.matmul.allow_tf32
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-    assert seen == [False, False]
-    assert after is True
+    for w in (48, 47):
+        img, mask, _, y = _scenario(np.float32, w=w, seed=5)
+        dc = fourier.make_rfft_data_consistency(_t(y), _t(mask), 0.05, method="matmul")
+        seen.clear()
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        monkeypatch.setattr(torch.Tensor, "__matmul__", spy)
+        try:
+            dc(_t(img))
+            after = torch.backends.cuda.matmul.allow_tf32
+        finally:
+            monkeypatch.undo()
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        assert len(seen) >= 8 and not any(seen), (w, seen)
+        assert after is True
 
 
 def test_precision_guard_takes_flags_set_apart_by_the_caller():
@@ -162,3 +165,86 @@ def test_precision_guard_takes_flags_set_apart_by_the_caller():
     finally:
         torch.set_float32_matmul_precision("highest")
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _jax_form(packed, karatsuba, fn):
+    """``fn()`` with the JAX package's packed / Karatsuba flags set, and its
+    own values back after (``tests/test_ops.py``'s pattern)."""
+    old = jf._MATMUL_PACKED, jf._MATMUL_K3
+    try:
+        jf._MATMUL_PACKED, jf._MATMUL_K3 = packed, karatsuba
+        return fn()
+    finally:
+        jf._MATMUL_PACKED, jf._MATMUL_K3 = old
+
+
+@pytest.mark.parametrize("packed,karatsuba", [(False, False), (True, False), (True, True)],
+                         ids=["unpacked", "packed", "packed_karatsuba"])
+def test_packed_matmul_dc_forms_equal_the_rfft_path(packed, karatsuba):
+    """The port's matmul solve at even W (Nyquist-packed, Karatsuba
+    products) is the rfft solve reassociated: 1e-12 in float64 at 24 x 32,
+    and within 1e-12 of each of the JAX package's three matmul forms."""
+    rng = np.random.default_rng(11)
+    h, w = 24, 32
+    v = rng.random((3, h, w))
+    mask = (rng.random((h, w)) < 0.3).astype(np.float64)
+    y = np.fft.fft2(rng.random((h, w))) * mask + (rng.normal(size=(h, w)) + 1j * rng.normal(size=(h, w)))
+    ref = fourier.make_rfft_data_consistency(_t(y), _t(mask), 0.015)(_t(v))
+    got = fourier.make_rfft_data_consistency(_t(y), _t(mask), 0.015, method="matmul")(_t(v))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-12)
+    jax_got = _jax_form(packed, karatsuba, lambda: np.asarray(
+        jf.make_rfft_data_consistency(jnp.asarray(y), jnp.asarray(mask), 0.015, method="matmul")(jnp.asarray(v))))
+    np.testing.assert_allclose(got.numpy(), jax_got, rtol=0, atol=1e-12)
+
+
+def test_packed_matmul_dc_in_float32_matches_jax():
+    img, mask, _, y = _scenario(np.float32, seed=12)
+    got = fourier.make_rfft_data_consistency(_t(y), _t(mask), 0.05, method="matmul")(_t(img))
+    ref = _jax_form(True, True, lambda: jf.make_rfft_data_consistency(
+        jnp.asarray(y), jnp.asarray(mask), 0.05, method="matmul")(jnp.asarray(img)))
+    _close(got.numpy(), ref, np.float32)
+
+
+def test_packed_matmul_dc_takes_the_unpacked_form_at_odd_width():
+    """Odd W has no Nyquist bin: the matmul solve is the unpacked form,
+    within 1e-12 of the rfft path and of the JAX package's matmul solve,
+    which falls back the same way with its packing flags on."""
+    rng = np.random.default_rng(13)
+    h, w = 24, 31
+    v = rng.random((h, w))
+    mask = (rng.random((h, w)) < 0.4).astype(np.float64)
+    y = np.fft.fft2(rng.random((h, w))) * mask
+    got = fourier.make_rfft_data_consistency(_t(y), _t(mask), 0.1, method="matmul")(_t(v))
+    ref = fourier.make_rfft_data_consistency(_t(y), _t(mask), 0.1)(_t(v))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-12)
+    for packed in (False, True):
+        jax_got = _jax_form(packed, packed, lambda: np.asarray(
+            jf.make_rfft_data_consistency(jnp.asarray(y), jnp.asarray(mask), 0.1, method="matmul")(jnp.asarray(v))))
+        np.testing.assert_allclose(got.numpy(), jax_got, rtol=0, atol=1e-12)
+    cw, sw = fourier._dft_mats(w, torch.float64)
+    ch, sh = fourier._dft_mats(h, torch.float64)
+    a, c = fourier.rfft_blend_fields(_t(y), _t(mask), 0.1)
+    vr, vi = fourier.matmul_rfft2(_t(v), (cw, sw, ch, sh))
+    unpacked = torch.abs(fourier.matmul_irfft2(a * vr + c.real, a * vi + c.imag, h, w, (cw, sw, ch, sh)))
+    assert torch.equal(got, unpacked)
+
+
+def test_resolve_dc_method_on_the_cpu():
+    y = torch.zeros(2, 16, 16, dtype=torch.complex64)
+    assert fourier.resolve_dc_method("auto", y) == "fft" == jf.resolve_dc_method("auto", jnp.zeros((2, 16, 16)))
+    assert fourier.resolve_dc_method("auto", torch.zeros(1, 2048, 2048, dtype=torch.complex64)) == "fft"
+    assert fourier.resolve_dc_method("matmul", y) == "matmul" == jf.resolve_dc_method("matmul", y)
+    assert fourier.resolve_dc_method("fft", y) == "fft"
+    with pytest.raises(ValueError, match="dc_method"):
+        fourier.resolve_dc_method("fast", y)
+
+
+def test_admm_l1_auto_equals_fft():
+    from pnp_admm_cnc_mri_torch.config import ADMMConfig
+    from pnp_admm_cnc_mri_torch.solvers import admm
+
+    img, mask, _, y = _scenario(np.float64, seed=14)
+    cfg = ADMMConfig(iter_num=6)
+    runs = {m: admm.admm_l1(_t(y), _t(mask), cfg, dtype=torch.float64, dc_method=m, device="cpu")[0]
+            for m in ("auto", "fft")}
+    assert torch.equal(runs["auto"].x, runs["fft"].x) and torch.equal(runs["auto"].z, runs["fft"].z)

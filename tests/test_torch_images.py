@@ -241,12 +241,18 @@ def test_channel_convert_as_cv2():
     assert a.dtype == b.dtype and a.shape == b.shape and float(np.abs(a - b).max()) <= 1.2e-7
 
 
+# the ids are the names these cases had when the reader took PNG only; the
+# kinds are those the readers still refuse
 @pytest.mark.parametrize("form,write", [
-    ("not a PNG file", lambda p: open(p, "wb").write(b"BM" + bytes(60))),
-    ("JPEG", lambda p: open(p, "wb").write(cv2.imencode(".jpg", np.zeros((8, 8), np.uint8))[1].tobytes())),
-    ("BMP", lambda p: open(p, "wb").write(cv2.imencode(".bmp", np.zeros((8, 8), np.uint8))[1].tobytes())),
-    ("TIFF", lambda p: open(p, "wb").write(cv2.imencode(".tiff", np.zeros((8, 8), np.uint8))[1].tobytes())),
-    ("PPM", lambda p: open(p, "wb").write(cv2.imencode(".ppm", np.zeros((8, 8, 3), np.uint8))[1].tobytes())),
+    pytest.param("not an image file", lambda p: open(p, "wb").write(b"GIF89a" + bytes(60)),
+                 id="not a PNG file-<lambda>"),
+    pytest.param("arithmetic-coded JPEG", lambda p: open(p, "wb").write(cv2.imencode(
+        ".jpg", np.zeros((8, 8), np.uint8))[1].tobytes().replace(b"\xff\xc0", b"\xff\xc9", 1)),
+        id="JPEG-<lambda>"),
+    pytest.param("BMP", lambda p: open(p, "wb").write(b"BM" + bytes(60)), id="BMP-<lambda>"),
+    pytest.param("TIFF", lambda p: open(p, "wb").write(b"II*\x00" + bytes(4)), id="TIFF-<lambda>"),
+    pytest.param("PBM", lambda p: open(p, "wb").write(cv2.imencode(".pbm", np.zeros((8, 8), np.uint8))[1].tobytes()),
+                 id="PPM-<lambda>"),
 ])
 def test_unsupported_forms_raise(tmp_path, form, write):
     path = str(tmp_path / "u.png")
