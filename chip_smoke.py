@@ -5,7 +5,7 @@
 
 Phases, each timed and each fatal on failure:
 
-- build:   compiles the port's three CUDA libraries from
+- build:   compiles the port's four CUDA libraries from
            ``pnp_admm_cnc_mri_torch/csrc``, one nvcc each, in parallel (while
            the phantom batch is made on the host);
 - kernels: holds each tail kernel against its plain PyTorch version on the
@@ -17,19 +17,24 @@ Phases, each timed and each fatal on failure:
            launch count set to 0 just before and read just after; checks the
            fused solves against the unfused ones, PSNR against the zero-filled
            start, and a float64 solve on the card against a numpy reference;
-- fused_iteration: holds both designs of the fused ADMM-L1 iteration (the
-           one-launch cluster kernel of ``csrc/admm_iteration_cluster.cu`` and
-           the three-launch strip kernels of ``csrc/admm_iteration.cu``)
+- fused_iteration: holds the three designs of the fused ADMM-L1 iteration
+           (the one-launch cluster kernel of ``csrc/admm_iteration_cluster.cu``,
+           the one-launch mixed-radix kernel of ``csrc/admm_iteration_mixed.cu``
+           and the three-launch strip kernels of ``csrc/admm_iteration.cu``)
            against the plain version at 512 x 256 x 256 and 3 x 128 x 256,
            from the scenario's initial state and its state after 10
-           iterations, at 2 x 512 x 64 and 2 x 1024 x 64 (errors printed), and
-           the strip design at 2 x 300 x 256, which only it takes; a NaN
-           planted in one image. Then drives ``admm_l1_fused_kernel`` at 512
-           x 256 x 256 x 50 with the counts set to 0 just before and read just
-           after (49 cluster launches, 0 strip launches: the strip kernels
-           are on the path only for shapes the cluster kernel does not take),
-           against the unfused matmul solver and the fused fft solve, and at
-           2 x 300 x 256 x 5 (4 strip launches);
+           iterations, at 2 x 512 x 64 and 2 x 1024 x 64 (errors printed); the
+           mixed design at the shapes the rule gives it (2 x 300 x 256, 2 x
+           320², 2 x 384², 2 x 512², 2 x 640 x 320; 2 x 320² after 10
+           iterations too) and at 2 x 300 x 256 with 75 rows a block; the
+           strip design at 2 x 256 x 254, which only it takes; a NaN planted
+           in one image. Then drives ``admm_l1_fused_kernel`` with the counts
+           set to 0 just before and read just after: at 512 x 256 x 256 x 50
+           (49 cluster launches, no other) against the unfused matmul solver
+           and the fused fft solve, at 512 x 320 x 320 x 50 (the main path's
+           phantoms in a 320² field of view; 49 mixed launches) likewise, at
+           2 x 300 x 256 x 5 (4 mixed launches) and at 2 x 256 x 254 x 5 (4
+           strip launches);
 - pnp:     builds DRUNet (nc 64..512, nb 4) and DnCNN (nb 17) at full width
            with seeded weights; holds the DRUNet forward (batch 1) and a
            4-iteration PnP-CNC solve (batch 2) in float32 against float64 on
@@ -209,8 +214,10 @@ Phases, each timed and each fatal on failure:
            limits below); K1 and K2 against their plain versions at the row
            shards' and the half grid's shapes;
 - timing:  CUDA-event medians of the solves, of each tail kernel against its
-           plain version and its bound, and of the two designs' steps and
-           the cuFFT path's iteration on the same state, in turns.
+           plain version and its bound, of the cluster and strip steps and
+           the cuFFT path's iteration at 512 x 256 x 256, and of the mixed
+           and strip steps and the cuFFT iteration at 512 x 320 x 320, each
+           on one state, in turns.
 
 Prints the card's name and power limit (nvidia-smi), one JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``. Exits
@@ -255,6 +262,8 @@ TAILS = {
 SOURCE = "pnp_admm_cnc_mri_torch/csrc/admm_tail.cu"
 FUSED_SOURCE = "pnp_admm_cnc_mri_torch/csrc/admm_iteration.cu"
 CLUSTER_SOURCE = "pnp_admm_cnc_mri_torch/csrc/admm_iteration_cluster.cu"
+MIXED_SOURCE = "pnp_admm_cnc_mri_torch/csrc/admm_iteration_mixed.cu"
+MIXED_SIDE = 320  # the mixed design's path and timing: fastMRI's image size
 FUSED_REPLACES = "pnp_admm_cnc_mri_tpu/ops/pallas_dc.py:83"
 # The JAX package's PSNRs (dB) on the bm3d phase's scenario (the first 4
 # images: phantoms seed 0, random_mask(0.3, seed 1), synth_noise(3.0, seed 2)):
@@ -2100,7 +2109,8 @@ def main() -> dict:
     threads = [threading.Thread(target=build, args=(name, load))
                for name, load in (("admm_tail", tail_kernels.load_library),
                                   ("admm_iteration", fused_dc.load_library),
-                                  ("admm_iteration_cluster", fused_dc.load_cluster_library))]
+                                  ("admm_iteration_cluster", fused_dc.load_cluster_library),
+                                  ("admm_iteration_mixed", fused_dc.load_mixed_library))]
     for th in threads:
         th.start()
     img_np = phantom.mri_phantoms(B, H, seed=0)
@@ -2212,6 +2222,17 @@ def main() -> dict:
         nz = torch.from_numpy(noise.synth_noise((h, w), std=3.0, seed=2).astype(np.complex64)).to(dev)
         return fourier.observe(torch.from_numpy(big[:b, :h, :w].copy()).to(dev), m, nz), m
 
+    def field_of_view(images, side=MIXED_SIDE):
+        """The main path's phantoms centred in a side x side field of view,
+        observed with the main path's mask and noise recipe at that size:
+        (images, k-space, mask)."""
+        top, left = (side - images.shape[-2]) // 2, (side - images.shape[-1]) // 2
+        padded = torch.nn.functional.pad(
+            images, (left, side - images.shape[-1] - left, top, side - images.shape[-2] - top))
+        m = torch.from_numpy(masks.random_mask((side, side), fraction=0.3, seed=1)).to(dev, torch.float32)
+        nz = torch.from_numpy(noise.synth_noise((side, side), std=3.0, seed=2).astype(np.complex64)).to(dev)
+        return padded, fourier.observe(padded, m, nz), m
+
     def make(ys, ms, design=None):
         a_s, c_s = fourier.rfft_blend_fields(ys, ms, cfg_l1.rho)
         return fused_dc.make_fused_iteration(a_s, c_s.real.contiguous(), c_s.imag.contiguous(),
@@ -2224,10 +2245,11 @@ def main() -> dict:
 
     def held(step, z0, w0, what):
         """Max abs errors of one step against the plain version in float64 and
-        in float32. The cluster design is held to the first (its FFTs are more
-        accurate than the plain version's dense float32 products, whose row 0
-        errs by up to 1.7e-5 at H = 1024), the strip design to the second (it
-        runs those products). Checks finiteness, the limit, bitwise repeats."""
+        in float32. The cluster and mixed designs are held to the first (their
+        FFTs are more accurate than the plain version's dense float32
+        products, whose row 0 errs by up to 1.7e-5 at H = 1024), the strip
+        design to the second (it runs those products). Checks finiteness, the
+        limit, bitwise repeats."""
         got = step(z0, w0)
         errs = {}
         for ref_name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
@@ -2235,7 +2257,7 @@ def main() -> dict:
             errs[ref_name] = max(float((a_ - r_).abs().max()) for a_, r_ in zip(got, ref))
         for name, a_ in zip(("z'", "w'"), got):
             check(bool(torch.isfinite(a_).all()), f"fused_iteration {what}: non-finite {name}")
-        e = errs["f64" if step.fields.design == "cluster" else "f32"]
+        e = errs["f32" if step.fields.design == "strips" else "f64"]
         check(e < FUSED_ATOL, f"fused_iteration {what}: max abs error {e} against the plain version")
         again = step(z0, w0)
         check(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)), f"fused_iteration {what}: two launches differ")
@@ -2259,12 +2281,43 @@ def main() -> dict:
         check(make(ys, ms).fields.design == "cluster", f"{tag}: the rule did not take the cluster design")
     q_main = steps["512x256x256", "cluster"].fields.q
     check(q_main == 8, f"Q at 256 x 256 is {q_main}")
-    # shapes that only the strip design takes (H not a power of two), and tall images
-    y300, m300 = scenario(2, 300, 256)
-    step300 = make(y300, m300)
-    check(step300.fields.design == "strips", f"2x300x256 took {step300.fields.design}")
-    init = admm.init_state(y300)
-    fused_err["strips"] = max(fused_err["strips"], held(step300, init.z, init.w, "strips 2x300x256")[0])
+    # the mixed design at the shapes the rule gives it, against the plain step in float64
+    t_mixed = time.perf_counter()
+    mixed = {}
+    for bb, hh, ww in ((2, 300, 256), (2, MIXED_SIDE, MIXED_SIDE), (2, 384, 384), (2, 512, 512), (2, 640, 320)):
+        tag = f"{bb}x{hh}x{ww}"
+        ys, ms = scenario(bb, hh, ww)
+        step = make(ys, ms)
+        check(step.fields.design == "mixed", f"{tag} took {step.fields.design}")
+        init = admm.init_state(ys)
+        mixed[tag] = {"q": step.fields.q, "err": held(step, init.z, init.w, f"mixed {tag}")[0]}
+        if hh == ww == MIXED_SIDE:
+            later = admm.admm_l1(ys, ms, cfg_10, dc_method="fft")[0]
+            mixed[tag]["err_after_10"] = held(step, later.z, later.w, f"mixed {tag} after 10 iterations")[0]
+            # a NaN in image 1 fills that image, and only it
+            z_nan = init.z.clone()
+            z_nan[1, 100, 100] = float("nan")
+            got, ref = step(z_nan, init.w), plain_step(step, z_nan, init.w, torch.float64)
+            for name, a_, r_ in zip(("z'", "w'"), got, ref):
+                check(bool(torch.isnan(a_[1]).all() and torch.isnan(r_[1]).all()),
+                      f"fused_iteration mixed {tag}: {name} of the image with a NaN is not all NaN")
+                e = float((a_[0] - r_[0]).abs().max())
+                check(e < FUSED_ATOL, f"fused_iteration mixed {tag} with a NaN in image 1: {name} error {e} in image 0")
+        if (hh, ww) == (300, 256):
+            y300, m300 = ys, ms
+            forced = make(ys, ms, "mixed")
+            forced.fields.q = 4  # 75 rows a block: the last of each goes through the row FFTs alone
+            mixed[tag]["err_q4"] = held(forced, init.z, init.w, f"mixed {tag} at Q 4")[0]
+        fused_err["mixed"] = max(fused_err["mixed"], *(v for k, v in mixed[tag].items() if k != "q"))
+    t_mixed = time.perf_counter() - t_mixed
+    log(f"fused_iteration: the mixed design against the plain version in float64, Q and max abs errors "
+        f"{json.dumps(mixed)} ({t_mixed:.1f} s)")
+    # a shape that only the strip design takes (W = 254 = 2 x 127), and tall images
+    y254, m254 = scenario(2, 256, 254)
+    step254 = make(y254, m254)
+    check(step254.fields.design == "strips", f"2x256x254 took {step254.fields.design}")
+    init = admm.init_state(y254)
+    fused_err["strips"] = max(fused_err["strips"], held(step254, init.z, init.w, "strips 2x256x254")[0])
     tall = {}
     for hh in (512, 1024):
         ys, ms = scenario(2, hh, 64)
@@ -2274,7 +2327,7 @@ def main() -> dict:
             fused_err[design] = max(fused_err[design], e)
     log("fused_iteration: max abs errors at H = 512 and 1024 against the plain version in float64 and float32: "
         + json.dumps(tall))
-    # a NaN in image 7 fills that image, and only it, in both designs and the plain version
+    # a NaN in image 7 fills that image, and only it, in every design and the plain version
     init = admm.init_state(y)
     z_nan = init.z.clone()
     z_nan[7, 100, 100] = float("nan")
@@ -2282,7 +2335,7 @@ def main() -> dict:
     for design in fused_dc.DESIGNS:
         step = steps["512x256x256", design]
         got = step(z_nan, init.w)
-        ref = plain_step(step, z_nan, init.w, torch.float64 if design == "cluster" else torch.float32)
+        ref = plain_step(step, z_nan, init.w, torch.float32 if design == "strips" else torch.float64)
         for name, a_, r_ in zip(("z'", "w'"), got, ref):
             check(bool(torch.isnan(a_[7]).all() and torch.isnan(r_[7]).all()),
                   f"fused_iteration {design}: {name} of the image with a NaN is not all NaN")
@@ -2294,57 +2347,75 @@ def main() -> dict:
                                                              H, W, thr), "float64 fields"),
                       (lambda: fused_dc.make_fused_iteration(a_s[:, :-1], cr_s[..., :-1], ci_s[..., :-1],
                                                              H, W - 1, thr), "an odd W"),
-                      (lambda: make(y300, m300, "cluster"), "the cluster design at H = 300")):
+                      (lambda: make(y300, m300, "cluster"), "the cluster design at H = 300"),
+                      (lambda: make(y254, m254, "mixed"), "the mixed design at W = 254")):
         try:
             bad()
         except (TypeError, ValueError):
             pass
         else:
             raise AssertionError(f"fused_iteration took {what}")
-    log(f"fused_iteration: max abs error against the plain version {json.dumps(fused_err)} (cluster: the plain "
-        f"version in float64; strips: in float32; 512x256x256 and 3x128x256 from the initial state and after 10 "
-        f"iterations, 2x300x256 strips only, 2x512x64, 2x1024x64); Q {q_main} at 256x256; NaN stays in its image; "
-        f"launches bitwise repeatable; float64, odd W and the cluster design at H = 300 refused")
-    # the path: admm_l1_fused_kernel at 512 x 256 x 256, 50 iterations (the cluster design)
-    torch.cuda.synchronize()
-    tail_kernels.reset_launches()
-    fused_dc.reset_launches()
-    x_k, z_k, w_k = fused_dc.admm_l1_fused_kernel(y, mask, cfg_l1)
-    torch.cuda.synchronize()
-    by_design = dict(fused_dc.fused_iteration.by_design)
-    launches["fused_iteration"] = fused_dc.fused_iteration.launches
-    check(by_design == {"cluster": ITERS - 1, "strips": 0} and launches["fused_iteration"] == ITERS - 1,
-          f"fused iterations on the path: {launches['fused_iteration']}, by design {by_design}")
-    check(tail_kernels.l1_tail.launches == 0 and tail_kernels.cnc_tail.launches == 0,
-          "admm_l1_fused_kernel launched a tail kernel")
-    launches.update({f"fused_iteration_{k}": v for k, v in by_design.items()})
-    check(tuple(x_k.shape) == (B, H, W) and x_k.dtype == torch.float32, f"x is {x_k.dtype} {tuple(x_k.shape)}")
-    check(bool(torch.isfinite(x_k).all()), "admm_l1_fused_kernel: non-finite output")
-    ref_x = admm.admm_l1(y, mask, cfg_l1, fused=False, dc_method="matmul")[0].x
-    d = (x_k - ref_x).abs()
-    check(float(d.max()) < 5e-3 and float(d.mean()) < 1e-5,
-          f"admm_l1_fused_kernel vs unfused matmul solver: max {float(d.max())} mean {float(d.mean())}")
-    p = metrics.psnr(x_k * 255.0, img * 255.0)
-    check(bool(torch.isfinite(p).all()) and bool((p > zf_psnr).all()),
-          f"admm_l1_fused_kernel: PSNR {float(p.min())} not above the zero-filled PSNR on every image")
-    dp = float(p.mean()) - quality["admm_l1"]["psnr_db"]
-    check(abs(dp) < 0.05, f"admm_l1_fused_kernel mean PSNR {float(p.mean())} vs fft solve: {dp} dB")
-    quality["admm_l1_fused_kernel"] = {"psnr_db": float(p.mean()), "vs_matmul_max": float(d.max()),
-                                       "vs_matmul_mean": float(d.mean()), "vs_fft_psnr_db": dp}
-    # the strip design's path: a shape only it takes, 5 iterations
+    log(f"fused_iteration: max abs error against the plain version {json.dumps(fused_err)} (cluster and mixed: the "
+        f"plain version in float64; strips: in float32; 512x256x256 and 3x128x256 from the initial state and after 10 "
+        f"iterations, the mixed shapes above, 2x256x254 strips only, 2x512x64, 2x1024x64); Q {q_main} at 256x256; "
+        f"NaN stays in its image; launches bitwise repeatable; float64, odd W, the cluster design at H = 300 and the "
+        f"mixed design at W = 254 refused")
+
+    def fused_path(ys, ms, cfg, want, img_ref=None):
+        """admm_l1_fused_kernel with every count set to 0 just before and read
+        just after; its launches by design must be ``want``. Checks x against
+        the unfused matmul solver and, given the images, its PSNR against the
+        zero-filled start and the fused fft solve. Returns (launches by
+        design, numbers)."""
+        torch.cuda.synchronize()
+        tail_kernels.reset_launches()
+        fused_dc.reset_launches()
+        x_k = fused_dc.admm_l1_fused_kernel(ys, ms, cfg)[0]
+        torch.cuda.synchronize()
+        got = dict(fused_dc.fused_iteration.by_design)
+        tag = "x".join(map(str, ys.shape))
+        check(got == want and fused_dc.fused_iteration.launches == sum(want.values()),
+              f"admm_l1_fused_kernel at {tag}: {fused_dc.fused_iteration.launches} fused iterations, by design {got}")
+        check(tail_kernels.l1_tail.launches == 0 and tail_kernels.cnc_tail.launches == 0,
+              f"admm_l1_fused_kernel at {tag} launched a tail kernel")
+        check(tuple(x_k.shape) == tuple(ys.shape) and x_k.dtype == torch.float32, f"x is {x_k.dtype} {tuple(x_k.shape)}")
+        check(bool(torch.isfinite(x_k).all()), f"admm_l1_fused_kernel at {tag}: non-finite output")
+        d = (x_k - admm.admm_l1(ys, ms, cfg, fused=False, dc_method="matmul")[0].x).abs()
+        res = {"vs_matmul_max": float(d.max()), "vs_matmul_mean": float(d.mean())}
+        check(res["vs_matmul_max"] < 5e-3 and (img_ref is None or res["vs_matmul_mean"] < 1e-5),
+              f"admm_l1_fused_kernel at {tag} vs unfused matmul solver: {json.dumps(res)}")
+        if img_ref is not None:
+            p = metrics.psnr(x_k * 255.0, img_ref * 255.0)
+            zf = metrics.psnr(torch.abs(fourier.zero_fill(ys)) * 255.0, img_ref * 255.0)
+            check(bool(torch.isfinite(p).all()) and bool((p > zf).all()),
+                  f"admm_l1_fused_kernel at {tag}: PSNR {float(p.min())} not above the zero-filled PSNR on every image")
+            x_fft = admm.admm_l1(ys, ms, cfg, fused=True, dc_method="fft")[0].x
+            dp = float(p.mean()) - float(metrics.psnr(x_fft * 255.0, img_ref * 255.0).mean())
+            check(abs(dp) < 0.05, f"admm_l1_fused_kernel at {tag}: mean PSNR {float(p.mean())} vs fft solve: {dp} dB")
+            res.update({"psnr_db": float(p.mean()), "vs_fft_psnr_db": dp})
+        return got, res
+
+    # the paths: the cluster design at 512 x 256 x 256, the mixed design at 512
+    # x 320 x 320 and 2 x 300 x 256, the strip design at 2 x 256 x 254
+    by_design, quality["admm_l1_fused_kernel"] = fused_path(
+        y, mask, cfg_l1, {"cluster": ITERS - 1, "mixed": 0, "strips": 0}, img)
+    launches["fused_iteration"] = sum(by_design.values())
+    launches["fused_iteration_cluster"] = by_design["cluster"]
+    img320, y320, mask320 = field_of_view(img)
+    by_320, quality[f"admm_l1_fused_kernel_{MIXED_SIDE}"] = fused_path(
+        y320, mask320, cfg_l1, {"cluster": 0, "mixed": ITERS - 1, "strips": 0}, img320)
+    launches["fused_iteration_mixed"] = by_320["mixed"]
+    del img320, y320, mask320
     cfg_5 = ADMMConfig(iter_num=5, lam=cfg_l1.lam, rho=cfg_l1.rho)
-    torch.cuda.synchronize()
-    fused_dc.reset_launches()
-    x300 = fused_dc.admm_l1_fused_kernel(y300, m300, cfg_5)[0]
-    torch.cuda.synchronize()
-    by_300 = dict(fused_dc.fused_iteration.by_design)
-    check(by_300 == {"cluster": 0, "strips": 4}, f"admm_l1_fused_kernel at 2x300x256: by design {by_300}")
-    d300 = float((x300 - admm.admm_l1(y300, m300, cfg_5, fused=False, dc_method="matmul")[0].x).abs().max())
-    check(d300 < 5e-3, f"admm_l1_fused_kernel at 2x300x256 vs unfused matmul solver: max {d300}")
-    del ref_x, d, z_nan, got, ref, init, later, y3, x300, big
-    log(f"fused_iteration: launches {launches['fused_iteration']} by design {json.dumps(by_design)} at "
-        f"512x256x256; {json.dumps(by_300)} at 2x300x256 (x within {d300:.3g} of the matmul solver); "
-        f"quality {json.dumps(quality['admm_l1_fused_kernel'])}")
+    by_300, d300 = fused_path(y300, m300, cfg_5, {"cluster": 0, "mixed": 4, "strips": 0})
+    by_254, d254 = fused_path(y254, m254, cfg_5, {"cluster": 0, "mixed": 0, "strips": 4})
+    launches["fused_iteration_strips"] = by_254["strips"]
+    del z_nan, got, ref, init, later, y3, y300, m300, y254, m254, big
+    log(f"fused_iteration: launches by design {json.dumps(by_design)} at 512x256x256 x {ITERS}, "
+        f"{json.dumps(by_320)} at 512x{MIXED_SIDE}x{MIXED_SIDE} x {ITERS}, {json.dumps(by_300)} at 2x300x256 x 5 "
+        f"(x within {d300['vs_matmul_max']:.3g} of the matmul solver), {json.dumps(by_254)} at 2x256x254 x 5 "
+        f"(within {d254['vs_matmul_max']:.3g}); quality {json.dumps(quality['admm_l1_fused_kernel'])} and "
+        f"{json.dumps(quality[f'admm_l1_fused_kernel_{MIXED_SIDE}'])}")
     phase("fused_iteration", t)
 
     # -- PnP: DRUNet-CNC and DnCNN-L1 at full width, seeded weights ------------
@@ -3079,12 +3150,48 @@ def main() -> dict:
         f"{k3_flops / 1e9:.2f} GFLOP), Q {q_main}, {active} clusters resident; strips {step_ms['strips']:.4f} ms "
         f"(stages {json.dumps(stages)}; strip {strip_step.fields.strip}; its dense products' floor "
         f"{dense_ms:.4f} ms); cuFFT iteration {step_ms['cufft_iteration']:.4f} ms; plain {k3_plain_ms:.4f} ms")
-    for design, source in (("cluster", CLUSTER_SOURCE), ("strips", FUSED_SOURCE)):
+    # the mixed design at 512 x 320 x 320, from that path's initial state, with
+    # the strip design and the cuFFT iteration at the same shape
+    _, y320, mask320 = field_of_view(img)
+    init320 = admm.init_state(y320)
+    z3, w3 = init320.z, init320.w
+    mixed_step, strip320 = make(y320, mask320), make(y320, mask320, "strips")
+    dc320 = fourier.make_rfft_data_consistency(y320, mask320, cfg_l1.rho, method="fft")
+    contenders = {
+        "mixed": lambda: mixed_step(z3, w3),
+        "strips": lambda: strip320(z3, w3),
+        "cufft_iteration": lambda: tail_kernels.l1_tail(dc320(z3 - w3), z3, w3, thr),
+    }
+    runs320 = {k: [] for k in contenders}
+    for k in [*contenders, *reversed(contenders)]:
+        runs320[k].append(cuda_ms(contenders[k], inner=5 if k != "strips" else 2))
+    step320_ms = {k: statistics.mean(v) for k, v in runs320.items()}
+    mixed_plain_ms = cuda_ms(lambda: plain_step(mixed_step, z3, w3), inner=2)
+    side, q320 = MIXED_SIDE, mixed_step.fields.q
+    active320 = fused_dc.mixed_active(dev, side, side, q320)
+    wh3 = side // 2 + 1
+    m_flops = B * (5 * side * side * math.log2(side * side) + 4 * side * wh3 + 10 * side * side)
+    m_bytes = 4 * (4 * B * side * side + 2 * B * side * wh3 + side * wh3)
+    m_bytes_ms, m_ops_ms = m_bytes / HBM_BYTES_PER_S * 1e3, m_flops / FP32_FLOPS * 1e3
+    m_bound = max(m_bytes_ms, m_ops_ms)
+    m_dense_ms = B * (8 * side * side * wh3 + 16 * side * side * wh3) / FP32_FLOPS * 1e3
+    log(f"timing: fused_iteration per step at 512x{side}x{side} (ms, two passes in turns): {json.dumps(runs320)}; "
+        f"mixed {step320_ms['mixed']:.4f} ms = {m_bytes / step320_ms['mixed'] / 1e6:.1f} GB/s, "
+        f"{m_bound / step320_ms['mixed']:.1%} of the {m_bound:.4f} ms bound ({m_bytes / 1e9:.3f} GB, "
+        f"{m_flops / 1e9:.2f} GFLOP), Q {q320}, {active320} clusters resident, "
+        f"{fused_dc.mixed_smem(side, side, q320)} B a block; strips {step320_ms['strips']:.4f} ms (their dense "
+        f"products' floor {m_dense_ms:.4f} ms); cuFFT iteration {step320_ms['cufft_iteration']:.4f} ms; "
+        f"plain {mixed_plain_ms:.4f} ms")
+    del y320, mask320, init320, z3, w3, mixed_step, strip320, dc320, contenders
+    k3 = {"cluster": (CLUSTER_SOURCE, step_ms["cluster"], k3_plain_ms, k3_bytes_ms, k3_ops_ms),
+          "mixed": (MIXED_SOURCE, step320_ms["mixed"], mixed_plain_ms, m_bytes_ms, m_ops_ms),
+          "strips": (FUSED_SOURCE, step_ms["strips"], k3_plain_ms, k3_bytes_ms, k3_ops_ms)}
+    for design, (source, ms, plain_ms, bytes_ms, ops_ms) in k3.items():
         kernels.append({
             "name": f"fused_iteration_{design}", "route": "cuda", "source": source, "replaces": FUSED_REPLACES,
             "launches": launches[f"fused_iteration_{design}"], "max_abs_err": fused_err[design],
-            "ms": step_ms[design], "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-            "bound_by": "bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
             "distributed_launches": {k: v[0]["fused_iteration"] for k, v in dist_res["launches"]["w1"].items()},
             "catalog_launches": {k: v["fused_iteration"] for k, v in cat_res["launches"].items()},

@@ -24,10 +24,12 @@ NVCC_FLAGS = (
 )
 # Flags of one source beyond NVCC_FLAGS. admm_tail: --fmad=false, no
 # multiply-add contraction, so its kernels round where their plain PyTorch
-# versions round (they are compared bit for bit). admm_iteration and
-# admm_iteration_cluster keep the contraction: their transforms are held to
-# a tolerance, and split multiply-adds would roughly halve their rate.
-SOURCE_FLAGS = {"admm_tail": ("--fmad=false",), "admm_iteration": (), "admm_iteration_cluster": ()}
+# versions round (they are compared bit for bit). admm_iteration,
+# admm_iteration_cluster and admm_iteration_mixed keep the contraction:
+# their transforms are held to a tolerance, and split multiply-adds would
+# roughly halve their rate.
+SOURCE_FLAGS = {"admm_tail": ("--fmad=false",), "admm_iteration": (), "admm_iteration_cluster": (),
+                "admm_iteration_mixed": ()}
 NVCC_TIMEOUT_S = 600
 
 

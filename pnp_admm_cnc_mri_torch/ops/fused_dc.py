@@ -5,22 +5,27 @@ Replaces the Pallas kernel ``make_fused_iteration`` of the JAX package's
 ``ops/pallas_dc.py`` and its solver ``admm_l1_fused_kernel``. One step is
 ``v = z - w``, the half-spectrum transform, the blend ``A .* V + C``, the
 inverse transform, ``x = |.|``, ``z' = soft(x + w, thr)`` and
-``w' = (w + x) - z'``. On the card it runs as one of two designs, each
-built with nvcc at first use and called through ctypes:
+``w' = (w + x) - z'``. On the card it runs as one of three designs,
+each built with nvcc at first use and called through ctypes:
 
 - ``"cluster"`` (``csrc/admm_iteration_cluster.cu``): one launch a step,
   one thread-block cluster of Q blocks per image, the transforms as FFTs in
   shared memory. It takes H and W powers of two whose half spectrum fits
   the cluster's shared memory (``cluster_size``).
+- ``"mixed"`` (``csrc/admm_iteration_mixed.cu``): the same one-launch
+  cluster step with mixed-radix (4, 2, 3, 5, 7) FFTs, for H and W whose
+  only prime factors are 2, 3, 5 and 7 and whose half spectrum fits a
+  cluster of up to 16 blocks (``mixed_size``): 320², 384², 448², 512²,
+  640 x 320, 300 x 256.
 - ``"strips"`` (``csrc/admm_iteration.cu``): three launches a step, the
   transforms as dense DFT products over two scratch planes allocated once
   per ``make_fused_iteration``. It takes any H up to its shared-memory
   limit and any even W.
 
 ``make_fused_iteration`` takes the cluster design wherever it takes the
-shape, the strip design otherwise (``pick_design``), unless ``design=``
-names one. Both are hand-written kernels; neither catches the other's
-failure.
+shape, then the mixed design, then the strip design (``pick_design``),
+unless ``design=`` names one. All are hand-written kernels; none catches
+another's failure.
 
 The step takes the plain version for tensors on the CPU (any float dtype),
 launches its design's kernels for float32 CUDA tensors and raises for
@@ -46,8 +51,9 @@ from pnp_admm_cnc_mri_torch.solvers import admm
 
 _LIB = None
 _CLUSTER_LIB = None
+_MIXED_LIB = None
 _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-DESIGNS = ("cluster", "strips")
+DESIGNS = ("cluster", "mixed", "strips")
 _SIGNATURES = {
     # z, w, E, Xr, Xi, rows, W, Wh, stream
     "admm_iteration_rows_f32": [_PTR] * 5 + [_I64, _INT, _INT, _PTR],
@@ -77,21 +83,34 @@ def load_library() -> ctypes.CDLL:
 _CLUSTER_SIGNATURE = [_PTR] * 9 + [ctypes.c_float, _I64, _INT, _INT, _INT, _PTR]
 
 
+def _load_one_launch_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``lib<name>.so``, a one-launch design
+    with the C interface ``<name>_f32``, ``_limits``, ``_smem``, ``_active``."""
+    lib = ctypes.CDLL(str(_build.build(name)))
+    for suffix, argtypes, restype in (("f32", _CLUSTER_SIGNATURE, _INT),
+                                      ("limits", [ctypes.POINTER(_INT)] * 3, _INT),
+                                      ("smem", [_INT] * 3, _I64),
+                                      ("active", [_INT] * 3, _INT)):
+        fn = getattr(lib, f"{name}_{suffix}")
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
 def load_cluster_library() -> ctypes.CDLL:
     """Build (if needed) and load ``libadmm_iteration_cluster.so``; idempotent."""
     global _CLUSTER_LIB
     if _CLUSTER_LIB is None:
-        lib = ctypes.CDLL(str(_build.build("admm_iteration_cluster")))
-        lib.admm_iteration_cluster_f32.argtypes = _CLUSTER_SIGNATURE
-        lib.admm_iteration_cluster_f32.restype = _INT
-        lib.admm_iteration_cluster_limits.argtypes = [ctypes.POINTER(_INT)] * 3
-        lib.admm_iteration_cluster_limits.restype = _INT
-        lib.admm_iteration_cluster_smem.argtypes = [_INT] * 3
-        lib.admm_iteration_cluster_smem.restype = _I64
-        lib.admm_iteration_cluster_active.argtypes = [_INT] * 3
-        lib.admm_iteration_cluster_active.restype = _INT
-        _CLUSTER_LIB = lib
+        _CLUSTER_LIB = _load_one_launch_library("admm_iteration_cluster")
     return _CLUSTER_LIB
+
+
+def load_mixed_library() -> ctypes.CDLL:
+    """Build (if needed) and load ``libadmm_iteration_mixed.so``; idempotent."""
+    global _MIXED_LIB
+    if _MIXED_LIB is None:
+        _MIXED_LIB = _load_one_launch_library("admm_iteration_mixed")
+    return _MIXED_LIB
 
 
 def reset_launches() -> None:
@@ -142,21 +161,91 @@ def cluster_size(h: int, w: int, smem=H100_SMEM) -> int:
     return 0
 
 
-def pick_design(h: int, w: int, design=None, smem=H100_SMEM) -> tuple:
+# -- the mixed design's shape rule ---------------------------------------------
+
+MIXED_SIZES = tuple(range(1, 17))  # blocks per cluster; above 8 a non-portable size
+RADICES = (4, 2, 3, 5, 7)  # the FFT's stages, in this order (csrc: fft_plan_of)
+
+
+def fft_plan(n: int) -> list:
+    """The radices of the mixed design's FFT of length n, in stage order:
+    radix 4 while 4 divides what is left, one radix 2, then 3, 5 and 7;
+    [] where n has a prime factor above 7 (or n < 2)."""
+    plan = []
+    for r in RADICES:
+        while n % r == 0:  # after the 4s, 2 divides at most once
+            plan.append(r)
+            n //= r
+    return plan if n == 1 and plan else []
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def mixed_smem(h: int, w: int, q: int) -> int:
+    """Dynamic shared memory of one block of the mixed design (bytes): an
+    mbarrier; its R = H/Q rows of the half spectrum, sized so that the rows
+    of z can land 16-byte aligned at its tail; its rows of w, or the Cr and
+    Ci of its ceil(W/2/Q) column slots if larger; the work buffer
+    (``admm_iteration_mixed.cu``'s layout)."""
+    r, nk = h // q, -(-(w // 2) // q)
+    spec = _round16(8 * (r + r % 2) + 4 * w * r)
+    wbuf = _round16(4 * max(r * w, 2 * h * nk))
+    return 16 + spec + wbuf + WORK * 8
+
+
+def mixed_size(h: int, w: int, smem=H100_SMEM, active=None) -> int:
+    """Blocks per cluster of the mixed design for (H, W), or 0 where it does
+    not take the shape. ``smem`` as in ``cluster_size``; ``active(q)``, where
+    given, is the device's count of resident clusters of q blocks.
+
+    The design takes H and W whose prime factors are 2, 3, 5 and 7, W even,
+    8 <= H, W <= 2048. Q is one of 1..16 that divides H, with at most W/2
+    blocks (one column slot each at least): the smallest whose blocks fit
+    two to an SM, failing that the smallest whose block fits at all; a Q
+    of which the device holds no cluster is passed over.
+    """
+    if not (w % 2 == 0 and 8 <= min(h, w) and max(h, w) <= MAX_SIDE and fft_plan(h) and fft_plan(w)):
+        return 0
+    block, sm, reserved = smem
+    sizes = [q for q in MIXED_SIZES if h % q == 0 and q <= w // 2]
+    for limit in (sm // 2 - reserved, block):
+        for q in sizes:
+            if mixed_smem(h, w, q) <= limit and (active is None or active(q) > 0):
+                return q
+    return 0
+
+
+def pick_design(h: int, w: int, design=None, smem=H100_SMEM, active=None) -> tuple:
     """-> ``(design, q)``: the cluster design wherever ``cluster_size`` takes
-    the shape, else the strip design (q = 0). ``design`` asks for one; it
-    raises if the cluster design cannot take the shape."""
+    the shape, else the mixed design wherever ``mixed_size`` takes it, else
+    the strip design (q = 0). ``design`` asks for one; it raises if the
+    cluster or the mixed design cannot take the shape. ``active`` as in
+    ``mixed_size``."""
     if design is not None and design not in DESIGNS:
         raise ValueError(f"unknown design {design!r}; expected one of {DESIGNS}")
-    q = cluster_size(h, w, smem)
-    if design == "cluster" and q == 0:
-        raise ValueError(
-            f"the cluster design does not take H={h}, W={w}: it needs H and W powers of two, "
-            f"8 <= H, W <= {MAX_SIDE}, and a half spectrum that fits a cluster's shared memory"
-        )
-    if design == "strips" or q == 0:
+    if design == "strips":
         return "strips", 0
-    return "cluster", q
+    if design in (None, "cluster"):
+        q = cluster_size(h, w, smem)
+        if q:
+            return "cluster", q
+        if design == "cluster":
+            raise ValueError(
+                f"the cluster design does not take H={h}, W={w}: it needs H and W powers of two, "
+                f"8 <= H, W <= {MAX_SIDE}, and a half spectrum that fits a cluster's shared memory"
+            )
+    q = mixed_size(h, w, smem, active)
+    if q:
+        return "mixed", q
+    if design == "mixed":
+        raise ValueError(
+            f"the mixed design does not take H={h}, W={w}: it needs H and W with no prime factor "
+            f"above 7, W even, 8 <= H, W <= {MAX_SIDE}, and a half spectrum that fits a cluster "
+            "of at most 16 blocks"
+        )
+    return "strips", 0
 
 
 def twiddles(n: int, device=None, dtype=torch.float32) -> torch.Tensor:
@@ -186,9 +275,9 @@ class FusedIteration:
     f: Optional[torch.Tensor] = None  # (2Wh, W)  [wk cw; -wk sw][:Wh, :]
     planes: Optional[torch.Tensor] = None  # (2, ..., H, Wh) scratch
     strip: int = 0  # spectral columns per block of the column stage, as the library picks it
-    design: str = "strips"  # "cluster" or "strips"
-    q: int = 0  # blocks per cluster of the cluster design
-    tw: Optional[tuple] = None  # (tw_w, tw_h): the cluster design's twiddle tables
+    design: str = "strips"  # "cluster", "mixed" or "strips"
+    q: int = 0  # blocks per cluster of the cluster or mixed design
+    tw: Optional[tuple] = None  # (tw_w, tw_h): the one-launch designs' twiddle tables
 
 
 def fused_iteration_plain(z, w, a_half, cr, ci, thr, mats=None):
@@ -229,9 +318,9 @@ def make_fused_iteration(a_half, cr, ci, h: int, w: int, thr: float, device=None
     their dtype and go to ``device``, None meaning the CUDA card).
     ``thr = rho * lam``. The state ``(z, w)`` given to the step has shape
     (..., H, W) with cr's leading shape, and the fields' dtype and device.
-    ``design``: None (``pick_design``'s rule), ``"cluster"`` or
-    ``"strips"``; a design that cannot take the shape raises. On the CPU
-    both run the plain version. ``step.fields`` is the ``FusedIteration``
+    ``design``: None (``pick_design``'s rule), ``"cluster"``, ``"mixed"``
+    or ``"strips"``; a design that cannot take the shape raises. On the CPU
+    all run the plain version. ``step.fields`` is the ``FusedIteration``
     the step runs with (``.design``, ``.q``).
     """
     if w % 2:
@@ -258,8 +347,9 @@ def make_fused_iteration(a_half, cr, ci, h: int, w: int, thr: float, device=None
     else:
         if dtype != torch.float32:
             raise TypeError(f"the fused iteration runs in float32 on the card, got {dtype}")
-        it.design, it.q = pick_design(h, w, design, device_smem(device))
-        if it.design == "cluster":
+        it.design, it.q = pick_design(h, w, design, device_smem(device),
+                                      active=lambda q: mixed_active(device, h, w, q))
+        if it.design in ("cluster", "mixed"):
             it.tw = (twiddles(w, device), twiddles(h, device))
         else:
             it.e, it.f = row_operands(cw, sw)
@@ -290,6 +380,16 @@ def device_smem(device) -> tuple:
     return tuple(v.value for v in vals)
 
 
+def mixed_active(device, h: int, w: int, q: int) -> int:
+    """Clusters of q blocks of the mixed design resident at once on a CUDA
+    device (``cudaOccupancyMaxActiveClusters``); raises if the query fails."""
+    with torch.cuda.device(device):
+        n = load_mixed_library().admm_iteration_mixed_active(h, w, q)
+    if n < 0:
+        raise RuntimeError(f"cluster occupancy query failed: cudaError {-n}")
+    return n
+
+
 def _check(it: FusedIteration, z, w) -> str:
     """Validate the state against the fields; returns ``'cpu'`` or ``'cuda'``."""
     shape = (*it.cr.shape[:-1], it.w)
@@ -313,7 +413,8 @@ def _check(it: FusedIteration, z, w) -> str:
 def launch(name: str, device, *args) -> None:
     """Call one entry point of a library on the current stream; raises if
     the launch failed."""
-    lib = load_cluster_library() if name == "admm_iteration_cluster_f32" else load_library()
+    lib = {"admm_iteration_cluster_f32": load_cluster_library,
+           "admm_iteration_mixed_f32": load_mixed_library}.get(name, load_library)()
     fn = getattr(lib, name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -338,10 +439,10 @@ def stage_launches(it: FusedIteration, z, w, z_new, w_new) -> list:
 
 
 def cluster_launch(it: FusedIteration, z, w, z_new, w_new) -> tuple:
-    """The one launch of a step of the cluster design, as ``(entry point,
-    arguments)``."""
+    """The one launch of a step of the cluster or the mixed design, as
+    ``(entry point, arguments)``."""
     ptrs = (t.data_ptr() for t in (z, w, *it.tw, it.a_half, it.cr, it.ci, z_new, w_new))
-    return "admm_iteration_cluster_f32", (*ptrs, it.thr, z.numel() // (it.h * it.w), it.h, it.w, it.q)
+    return f"admm_iteration_{it.design}_f32", (*ptrs, it.thr, z.numel() // (it.h * it.w), it.h, it.w, it.q)
 
 
 def fused_iteration(z: torch.Tensor, w: torch.Tensor, it: FusedIteration) -> tuple:
@@ -350,7 +451,7 @@ def fused_iteration(z: torch.Tensor, w: torch.Tensor, it: FusedIteration) -> tup
         return fused_iteration_plain(z, w, it.a_half, it.cr, it.ci, it.thr, it.mats)
     z_new, w_new = torch.empty_like(z), torch.empty_like(z)
     if z.numel():
-        if it.design == "cluster":
+        if it.design in ("cluster", "mixed"):
             launches = [cluster_launch(it, z, w, z_new, w_new)]
         else:
             launches = stage_launches(it, z, w, z_new, w_new)

@@ -17,6 +17,8 @@ one. The file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -108,12 +110,12 @@ FUSED_ATOL = 1e-5
 def _plain(design, z, wd, fields):
     """The plain step that a design is held against. The strip design runs
     the plain version's dense float32 DFT products, so it is held against
-    the plain version in float32, whose rounding it shares. The cluster
-    design's FFTs are more accurate than those products (the float32 plain
-    step is 1.7e-5 off its float64 self in row 0 at H = 1024, the FFT step
-    5e-7), so it is held against the plain version run in float64 on the
-    same inputs."""
-    if design == "cluster":
+    the plain version in float32, whose rounding it shares. The cluster and
+    mixed designs' FFTs are more accurate than those products (the float32
+    plain step is 1.7e-5 off its float64 self in row 0 at H = 1024, the FFT
+    step 5e-7), so they are held against the plain version run in float64
+    on the same inputs."""
+    if design != "strips":
         return fused_dc.fused_iteration_plain(z.double(), wd.double(), *(f.double() for f in fields), C_L1)
     return fused_dc.fused_iteration_plain(z, wd, *fields, C_L1)
 
@@ -122,6 +124,7 @@ def _plain(design, z, wd, fields):
 def cuda_iteration(cuda):
     fused_dc.load_library()
     fused_dc.load_cluster_library()
+    fused_dc.load_mixed_library()
     return cuda
 
 
@@ -139,13 +142,15 @@ def _fused_case(device, b, h, w, seed=0):
 
 
 @pytest.mark.parametrize(
-    "shape", [(4, 256, 256), (3, 128, 256), (2, 300, 256), (5, 8, 16), (2, 512, 64), (2, 1024, 64)])
+    "shape", [(4, 256, 256), (3, 128, 256), (2, 300, 256), (5, 8, 16), (2, 512, 64), (2, 1024, 64),
+              (2, 320, 320), (2, 384, 384), (2, 512, 512)])
 def test_fused_iteration_matches_plain(cuda_iteration, shape):
     b, h, w = shape
     z, wd, fields = _fused_case(cuda_iteration, b, h, w)
     step = fused_dc.make_fused_iteration(*fields, h, w, C_L1)
-    # the rule takes the cluster design at every power-of-two shape here
-    assert step.fields.design == ("strips" if h == 300 else "cluster")
+    # the rule takes the cluster design at the power-of-two shapes that fit
+    # 8 blocks, the mixed design at the others here
+    assert step.fields.design == ("mixed" if h in (300, 320, 384) or w == 512 else "cluster")
     before = fused_dc.fused_iteration.launches
     by_design = dict(fused_dc.fused_iteration.by_design)
     got = step(z, wd)
@@ -200,7 +205,10 @@ def test_fused_iteration_refuses_float64_and_odd_width(cuda_iteration):
 
 @pytest.mark.parametrize("design, shape", [
     *(("cluster", s) for s in [(4, 256, 256), (3, 128, 256), (5, 8, 16), (2, 512, 64), (2, 1024, 64)]),
-    *(("strips", s) for s in [(4, 256, 256), (3, 128, 256), (5, 8, 16), (2, 512, 64), (2, 1024, 64)])])
+    *(("mixed", s) for s in [(4, 256, 256), (3, 128, 256), (5, 8, 16), (2, 512, 64), (2, 1024, 64), (2, 448, 448),
+                             (2, 640, 320), (2, 256, 300), (2, 1024, 256), (3, 24, 40)]),
+    *(("strips", s) for s in [(4, 256, 256), (3, 128, 256), (5, 8, 16), (2, 512, 64), (2, 1024, 64),
+                              (2, 256, 254)])])
 def test_each_design_matches_plain(cuda_iteration, design, shape):
     b, h, w = shape
     z, wd, fields = _fused_case(cuda_iteration, b, h, w, seed=1)
@@ -246,7 +254,89 @@ def test_cluster_design_refuses_shapes_it_does_not_take(cuda_iteration):
     _, _, fields = _fused_case(cuda_iteration, 1, 300, 256)
     with pytest.raises(ValueError, match="cluster design does not take"):
         fused_dc.make_fused_iteration(*fields, 300, 256, C_L1, design="cluster")
-    assert fused_dc.make_fused_iteration(*fields, 300, 256, C_L1).fields.design == "strips"
+    assert fused_dc.make_fused_iteration(*fields, 300, 256, C_L1).fields.design == "mixed"
+
+
+def test_mixed_design_refuses_shapes_it_does_not_take(cuda_iteration):
+    _, _, fields = _fused_case(cuda_iteration, 1, 256, 254)
+    with pytest.raises(ValueError, match="mixed design does not take"):
+        fused_dc.make_fused_iteration(*fields, 256, 254, C_L1, design="mixed")
+    assert fused_dc.make_fused_iteration(*fields, 256, 254, C_L1).fields.design == "strips"
+
+
+# (shape, Q): the rule's Q and forced ones; 75, 25, 15, 5 and 3 rows a block
+# leave a lone row to the row FFTs, and 128 slots split unevenly over 10, 12, 15
+@pytest.mark.parametrize("shape, q", [((2, 300, 256), 10), ((2, 300, 256), 4), ((2, 300, 256), 12),
+                                      ((2, 300, 256), 15), ((2, 60, 48), 4), ((2, 45, 28), 9), ((3, 24, 40), 8),
+                                      ((2, 320, 320), 16), ((2, 512, 512), 16)])
+def test_mixed_design_at_every_q_matches_plain_bitwise_repeatably(cuda_iteration, shape, q):
+    b, h, w = shape
+    z, wd, fields = _fused_case(cuda_iteration, b, h, w, seed=2)
+    step = fused_dc.make_fused_iteration(*fields, h, w, C_L1, design="mixed")
+    step.fields.q = q
+    got = step(z, wd)
+    ref = _plain("mixed", z, wd, fields)
+    for a, r in zip(got, ref):
+        assert float((a - r).abs().max()) < FUSED_ATOL
+    again = step(z, wd)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))  # no atomics: bitwise repeatable
+
+
+def test_mixed_design_launches_the_non_portable_cluster_of_16(cuda_iteration):
+    # 512 x 512 takes Q = 16, above the 8 blocks a cluster may hold without
+    # cudaFuncAttributeNonPortableClusterSizeAllowed
+    smem = fused_dc.device_smem(cuda_iteration)
+    assert fused_dc.pick_design(512, 512, smem=smem) == ("mixed", 16)
+    assert fused_dc.mixed_active(cuda_iteration, 512, 512, 16) > 0
+    z, wd, fields = _fused_case(cuda_iteration, 3, 512, 512)
+    step = fused_dc.make_fused_iteration(*fields, 512, 512, C_L1)
+    assert (step.fields.design, step.fields.q) == ("mixed", 16)
+    before = fused_dc.fused_iteration.by_design["mixed"]
+    got = step(z, wd)
+    torch.cuda.synchronize()
+    assert fused_dc.fused_iteration.by_design["mixed"] == before + 1
+    ref = _plain("mixed", z, wd, fields)
+    assert max(float((a - r).abs().max()) for a, r in zip(got, ref)) < FUSED_ATOL
+
+
+def test_mixed_design_keeps_a_nan_in_its_image(cuda_iteration):
+    z, wd, fields = _fused_case(cuda_iteration, 9, 320, 320)
+    z[7, 10, 20] = float("nan")
+    step = fused_dc.make_fused_iteration(*fields, 320, 320, C_L1)
+    assert step.fields.design == "mixed"
+    got = step(z, wd)
+    ref = _plain("mixed", z, wd, fields)
+    others = [i for i in range(9) if i != 7]
+    for a, r in zip(got, ref):
+        assert torch.isnan(a[7]).all() and torch.isnan(r[7]).all()
+        assert float((a[others] - r[others]).abs().max()) < FUSED_ATOL
+
+
+def test_mixed_design_takes_a_misaligned_state(cuda_iteration):
+    # a state one float off 16-byte alignment goes through plain loads, not bulk copies
+    z, wd, fields = _fused_case(cuda_iteration, 2, 320, 320)
+    zm, wm = (torch.cat([torch.zeros(1, device=t.device), t.view(-1)])[1:].view(t.shape) for t in (z, wd))
+    assert zm.data_ptr() % 16 and zm.is_contiguous()
+    step = fused_dc.make_fused_iteration(*fields, 320, 320, C_L1)
+    got = step(zm, wm)
+    ref = _plain("mixed", z, wd, fields)
+    for a, r in zip(got, ref):
+        assert float((a - r).abs().max()) < FUSED_ATOL
+
+
+@pytest.mark.parametrize("h, w, q", [(320, 320, 10), (384, 384, 16), (448, 448, 14), (512, 512, 16), (640, 320, 10),
+                                     (300, 256, 10), (1024, 256, 16)])
+def test_mixed_size_fits_the_card(cuda_iteration, h, w, q):
+    """Q as the rule picks it from the card's own shared memory and resident
+    clusters, the library's block layout and limits equal to the rule's."""
+    smem = fused_dc.device_smem(cuda_iteration)
+    lib = fused_dc.load_mixed_library()
+    vals = [ctypes.c_int() for _ in range(3)]
+    assert lib.admm_iteration_mixed_limits(*(ctypes.byref(v) for v in vals)) == 0
+    assert tuple(v.value for v in vals) == smem
+    assert fused_dc.mixed_size(h, w, smem, lambda p: fused_dc.mixed_active(cuda_iteration, h, w, p)) == q
+    assert lib.admm_iteration_mixed_smem(h, w, q) == fused_dc.mixed_smem(h, w, q)
+    assert lib.admm_iteration_mixed_smem(h, w + 1, q) == -1
 
 
 # The denoisers on the card, float32 against float64 on the same seeded

@@ -167,7 +167,7 @@ def test_counter_counts_only_on_cuda_and_resets(monkeypatch):
     fused_dc.fused_iteration.by_design["cluster"] = 5
     fused_dc.reset_launches()
     assert fused_dc.fused_iteration.launches == 0
-    assert fused_dc.fused_iteration.by_design == {"cluster": 0, "strips": 0}
+    assert fused_dc.fused_iteration.by_design == {"cluster": 0, "mixed": 0, "strips": 0}
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "type", "fields"])
@@ -206,10 +206,10 @@ def test_c_signatures_pass_pointers_and_sizes_at_full_width():
 
 def test_each_library_has_its_own_flags(tmp_path, monkeypatch):
     """admm_tail keeps --fmad=false (its kernels are compared bit for bit);
-    admm_iteration and admm_iteration_cluster contract multiply-adds; each
-    stamp hashes its own flags."""
+    admm_iteration, admm_iteration_cluster and admm_iteration_mixed contract
+    multiply-adds; each stamp hashes its own flags."""
     assert "--fmad=false" in _build.flags("admm_tail")
-    for name in ("admm_iteration", "admm_iteration_cluster"):
+    for name in ("admm_iteration", "admm_iteration_cluster", "admm_iteration_mixed"):
         assert "--fmad=false" not in _build.flags(name)
         assert "arch=compute_90a,code=sm_90a" in _build.flags(name)
         assert (_build.CSRC_DIR / f"{name}.cu").is_file()
@@ -267,19 +267,23 @@ def test_stage_algebra_gives_the_plain_step(shape):
     np.testing.assert_allclose(((wd + x) - z_new).numpy(), ref[1].numpy(), rtol=0, atol=1e-12)
 
 
-# -- the cluster design (csrc/admm_iteration_cluster.cu) ----------------------
+# -- the one-launch designs (csrc/admm_iteration_cluster.cu, _mixed.cu) ------
 
 def _stockham(x, tw, inverse):
-    """The kernel's FFT over the last axis, stage by stage: Stockham
-    autosort, radix-4 stages then one radix-2 stage where log2(n) is odd,
-    twiddle tw[q k (n / (ns r))] (conjugate for the inverse), output index
-    (j // ns) ns r + k + q ns."""
+    """The kernels' FFT over the last axis, stage by stage: Stockham
+    autosort over ``fused_dc.fft_plan(n)`` (radix 4 while 4 divides, one 2,
+    then 3, 5, 7: for a power of two the cluster kernel's radix-4 stages and
+    one radix-2 stage where log2(n) is odd), twiddle tw[q k (n / (ns r))]
+    (conjugate for the inverse), output index (j // ns) ns r + k + q ns. The
+    3-, 5- and 7-point DFTs as the mixed kernel runs them: sums and
+    differences of the inputs q and r - q, weighed by cos and sin of
+    2 pi t / r in the working precision."""
     n = x.shape[-1]
+    real = x.real.dtype.type
     if inverse:
         tw = np.conj(tw)
     ns = 1
-    while ns < n:
-        r = 4 if 4 * ns <= n else 2
+    for r in fused_dc.fft_plan(n):
         m = n // r
         j = np.arange(m)
         k = j % ns
@@ -288,8 +292,18 @@ def _stockham(x, tw, inverse):
             rot = (1j if inverse else -1j) * (v[1] - v[3])
             s02, d02, s13 = v[0] + v[2], v[0] - v[2], v[1] + v[3]
             y = [s02 + s13, d02 + rot, s02 - s13, d02 - rot]
-        else:
+        elif r == 2:
             y = [v[0] + v[1], v[0] - v[1]]
+        else:
+            half = r // 2
+            sums = [v[q] + v[r - q] for q in range(1, half + 1)]
+            diffs = [v[q] - v[r - q] for q in range(1, half + 1)]
+            y = [v[0] + sum(sums)] + [None] * (r - 1)
+            for kk in range(1, half + 1):
+                a = v[0] + sum(real(np.cos(2 * np.pi * q * kk / r)) * sums[q - 1] for q in range(1, half + 1))
+                b = sum(real(np.sin(2 * np.pi * q * kk / r)) * diffs[q - 1] for q in range(1, half + 1))
+                minus, plus = a - 1j * b, a + 1j * b
+                y[kk], y[r - kk] = (plus, minus) if inverse else (minus, plus)
         out = np.empty_like(x)
         d = (j // ns) * ns * r + k
         for q in range(r):
@@ -298,30 +312,49 @@ def _stockham(x, tw, inverse):
     return x
 
 
-def _cluster_mirror(z, wd, a, cr, ci, thr, dtype):
-    """The cluster kernel's algebra in numpy, in the order the kernel runs
-    it, in ``dtype`` (float32 or float64): packed rows v_2p + i v_2p+1, the
-    row FFT and its separation, the column FFTs of W/2 slots (slot 0 packs
-    the real bins 0 and W/2), the blend (slot 0: separated, blended, the
-    Hermitian parts kept and packed again), the inverse column FFTs / H, the
-    packed Hermitian inverse of the rows / W, |.|, soft and the dual."""
+def _row_units(h, q):
+    """The rows a kernel transforms together: block b of q owns rows
+    [b R, (b + 1) R), R = H / q, paired in order as v_a + i v_b; the last
+    row of an odd R goes alone (its partner is -1)."""
+    r = h // q
+    ia = np.array([blk * r + u for blk in range(q) for u in range(0, r, 2)])
+    ib = np.array([blk * r + u + 1 if u + 1 < r else -1 for blk in range(q) for u in range(0, r, 2)])
+    return ia, ib
+
+
+def _cluster_mirror(z, wd, a, cr, ci, thr, dtype, q=1):
+    """The one-launch kernels' algebra in numpy, in the order they run it,
+    in ``dtype`` (float32 or float64), with q blocks an image: packed rows
+    v_a + i v_b (``_row_units``), the row FFT and its separation, the column
+    FFTs of W/2 slots (slot 0 packs the real bins 0 and W/2), the blend
+    (slot 0: separated, blended, the Hermitian parts kept and packed again),
+    the inverse column FFTs / H, the packed Hermitian inverse of the rows /
+    W, |.|, soft and the dual. The cluster kernel is q = 1's pairing (its
+    blocks hold an even count of rows); how the slots split over the blocks
+    does not change the algebra."""
     cplx = np.complex64 if dtype == np.float32 else np.complex128
     tdt = torch.float32 if dtype == np.float32 else torch.float64
     z, wd, a, cr, ci = (np.asarray(t, dtype) for t in (z, wd, a, cr, ci))
     _, h, w = z.shape
     wh = w // 2 + 1
+    ia, ib = _row_units(h, q)
+    pair = ib >= 0
 
     def table(n):
         t = fused_dc.twiddles(n, dtype=tdt).numpy()
         return (t[:, 0] + 1j * t[:, 1]).astype(cplx)
 
+    def packed(rows):
+        second = np.where(pair[:, None], rows[:, np.maximum(ib, 0)], 0)
+        return (rows[:, ia] + 1j * second).astype(cplx)
+
     tw_w, tw_h = table(w), table(h)
     v = z - wd
-    c = _stockham((v[:, 0::2] + 1j * v[:, 1::2]).astype(cplx), tw_w, False)
+    c = _stockham(packed(v), tw_w, False)
     u, m = c[..., :wh], c[..., (w - np.arange(wh)) % w]
     spec = np.empty((*z.shape[:2], wh), cplx)
-    spec[:, 0::2] = (u + np.conj(m)) * dtype(0.5)
-    spec[:, 1::2] = (u - np.conj(m)) * cplx(-0.5j)
+    spec[:, ia] = (u + np.conj(m)) * dtype(0.5)
+    spec[:, ib[pair]] = ((u - np.conj(m)) * cplx(-0.5j))[:, pair]
     # the columns: W/2 slots, slot 0 packing bins 0 and W/2 (real) as bin0 + i bin(W/2)
     cplx_c = (cr + 1j * ci).astype(cplx)
     slots = spec[..., :w // 2].copy()
@@ -342,10 +375,10 @@ def _cluster_mirror(z, wd, a, cr, ci, thr, dtype):
     spec[..., 0] = inv[..., 0].real
     spec[..., w // 2] = inv[..., 0].imag
     full = np.concatenate([spec, np.conj(spec[..., w // 2 - 1:0:-1])], axis=-1)
-    xs = _stockham(full[:, 0::2] + 1j * full[:, 1::2], tw_w, True)
+    xs = _stockham(packed(full), tw_w, True)
     x = np.empty_like(z)
-    x[:, 0::2] = np.abs(xs.real * dtype(1.0 / w))
-    x[:, 1::2] = np.abs(xs.imag * dtype(1.0 / w))
+    x[:, ia] = np.abs(xs.real * dtype(1.0 / w))
+    x[:, ib[pair]] = np.abs(xs.imag * dtype(1.0 / w))[:, pair]
     u = x + wd
     z_new = np.sign(u) * np.maximum(np.abs(u) - dtype(thr), dtype(0))
     return z_new, (wd + x) - z_new
@@ -398,18 +431,30 @@ def test_twiddle_table_is_exact_to_its_type():
     ((256, 256), "cluster", 8), ((128, 256), "cluster", 4), ((8, 16), "cluster", 1),
     ((512, 64), "cluster", 4), ((1024, 64), "cluster", 8), ((64, 64), "cluster", 1),
     ((512, 256), "cluster", 8),  # one block an SM: 164 KB a block
-    ((1024, 256), "strips", 0),  # 289 KB a block even at Q = 8
-    ((300, 256), "strips", 0), ((256, 300), "strips", 0), ((256, 4), "strips", 0),
+    ((1024, 256), "mixed", 16),  # 289 KB a block even at Q = 8: past the cluster design, one an SM at 16
+    ((300, 256), "mixed", 10), ((256, 300), "mixed", 8),
+    ((320, 320), "mixed", 10), ((384, 384), "mixed", 16), ((448, 448), "mixed", 14), ((512, 512), "mixed", 16),
+    ((640, 320), "mixed", 10),
+    ((256, 254), "strips", 0), ((640, 368), "strips", 0), ((1024, 1024), "strips", 0),  # 127, 23; too large
+    ((256, 4), "strips", 0),
     ((4096, 8), "strips", 0), ((4, 64), "strips", 0)])  # taller than half a work buffer; shorter than 8
 def test_shape_rule_picks_the_design(shape, design, q):
     h, w = shape
     assert fused_dc.pick_design(h, w) == (design, q)
-    assert fused_dc.cluster_size(h, w) == q
-    if q:
-        block, sm, reserved = fused_dc.H100_SMEM
+    assert fused_dc.cluster_size(h, w) == (q if design == "cluster" else 0)
+    if design != "cluster":
+        assert fused_dc.mixed_size(h, w) == q
+    block, sm, reserved = fused_dc.H100_SMEM
+    if design == "cluster":
         assert fused_dc.cluster_smem(h, w, q) <= block
         two_an_sm = fused_dc.cluster_smem(h, w, q) <= sm // 2 - reserved
         assert two_an_sm == ((h, w) != (512, 256))
+    if design == "mixed":
+        # the smallest Q (dividing H) whose block fits two an SM, else one an SM
+        smem = fused_dc.mixed_smem(h, w, q)
+        assert h % q == 0 and smem <= block
+        limit = sm // 2 - reserved if smem <= sm // 2 - reserved else block
+        assert all(fused_dc.mixed_smem(h, w, p) > limit for p in range(1, q) if h % p == 0)
     assert fused_dc.pick_design(h, w, "strips") == ("strips", 0)
 
 
@@ -437,8 +482,9 @@ def test_step_names_its_design_and_both_run_the_plain_version_on_the_cpu():
     a, cr, ci = _fields(y, mask)
     z, wd = (torch.from_numpy(t.astype(np.float32)) for t in _state(np.zeros((2, 16, 32))))
     steps = {d: fused_dc.make_fused_iteration(a, cr, ci, 16, 32, THR, device="cpu", design=d)
-             for d in (None, "cluster", "strips")}
+             for d in (None, "cluster", "mixed", "strips")}
     assert (steps[None].fields.design, steps[None].fields.q) == ("cluster", 1)
+    assert (steps["mixed"].fields.design, steps["mixed"].fields.q) == ("mixed", 1)
     assert (steps["strips"].fields.design, steps["strips"].fields.q) == ("strips", 0)
     before = dict(fused_dc.fused_iteration.by_design)
     outs = [s(z, wd) for s in steps.values()]
@@ -446,3 +492,122 @@ def test_step_names_its_design_and_both_run_the_plain_version_on_the_cpu():
         assert all(torch.equal(g, r) for g, r in zip(o, outs[0]))
     assert fused_dc.fused_iteration.by_design == before  # the plain path does not count
 
+
+
+# -- the mixed design (csrc/admm_iteration_mixed.cu) ---------------------------
+
+@pytest.mark.parametrize("n, plan, group", [
+    (8, [4, 2], 1), (256, [4, 4, 4, 4], 32), (320, [4, 4, 4, 5], 64), (384, [4, 4, 4, 2, 3], 64),
+    (448, [4, 4, 4, 7], 64), (300, [4, 3, 5, 5], 64), (42, [2, 3, 7], 8), (2048, [4, 4, 4, 4, 4, 2], 256),
+    (2000, [4, 4, 5, 5, 5], 512), (254, [], 0), (368, [], 0), (1, [], 0)])
+def test_fft_plan_and_group(n, plan, group):
+    """The plan, and the threads a sequence as the kernel picks them
+    (csrc: fft_plan_of): a thread holds at most 8 values a stage (4
+    butterflies of radix 2, 2 of radix 3 or 4, 1 of radix 5 or 7), and g is
+    the least power of two that holds every stage, so a block's 512 / g
+    sequences fill at most the 4096 values of its work buffer."""
+    assert fused_dc.fft_plan(n) == plan
+    if plan:
+        per = {2: 4, 3: 2, 4: 2, 5: 1, 7: 1}
+        need = max(-(-(n // r) // per[r]) for r in plan)
+        g = 1 << (need - 1).bit_length()
+        assert g == group and (512 // g) * n <= 4096
+
+
+@pytest.mark.parametrize("n", [8, 12, 20, 30, 42, 48, 60, 96, 105, 225, 320, 343, 384, 448, 2048])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_mixed_stockham_is_the_dft(n, inverse):
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n))
+    t = fused_dc.twiddles(n, dtype=torch.float64).numpy()
+    got = _stockham(x, t[:, 0] + 1j * t[:, 1], inverse)
+    ref = np.fft.ifft(x, axis=-1) * n if inverse else np.fft.fft(x, axis=-1)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12 * n)
+
+
+@pytest.mark.parametrize("h, q, units", [(30, 1, [(0, 1), (28, 29)]), (30, 2, [(0, 1), (14, -1), (15, 16), (29, -1)]),
+                                         (9, 3, [(0, 1), (2, -1), (3, 4), (8, -1)])])
+def test_row_units_pair_within_a_block_and_leave_a_lone_row(h, q, units):
+    ia, ib = _row_units(h, q)
+    got = list(zip(ia.tolist(), ib.tolist()))
+    assert len(got) == q * ((h // q + 1) // 2)
+    assert got[0] == units[0] and got[-1] == units[-1]
+    assert all(u in got for u in units)
+    covered = sorted([*ia.tolist(), *ib[ib >= 0].tolist()])
+    assert covered == list(range(h))
+
+
+# (shape, q): the rule's Q and forced ones that leave an odd count of rows a
+# block (a lone row) and slots that split unevenly over the blocks
+MIXED_CASES = [((2, 24, 40), 1), ((2, 24, 40), 8), ((1, 60, 48), 4), ((1, 60, 48), 1), ((2, 30, 20), 2),
+               ((2, 30, 20), 5), ((1, 20, 42), 4), ((1, 20, 42), 1), ((1, 45, 28), 9)]
+
+
+@pytest.mark.parametrize("shape, q", MIXED_CASES)
+def test_mixed_algebra_gives_the_plain_step(shape, q):
+    """In float64 the mixed kernel's algebra equals the plain dense step."""
+    b, h, w = shape
+    assert h % q == 0 and q <= w // 2 and fused_dc.fft_plan(h) and fused_dc.fft_plan(w)
+    img, mask, y = _scenario(b, h, w, dtype=np.float64)
+    a, cr, ci = _fields(y, mask)
+    z, wd = _state(img)
+    got = _cluster_mirror(z, wd, a, cr, ci, THR, np.float64, q)
+    ref = fused_dc.fused_iteration_plain(*(torch.from_numpy(t) for t in (z, wd, a, cr, ci)), THR)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r.numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape, q", [((2, 24, 40), 8), ((2, 30, 20), 2), ((2, 20, 42), 4), ((2, 60, 48), 4)])
+def test_mixed_algebra_matches_pallas(shape, q):
+    """In float32 the mixed kernel's algebra agrees with the Pallas kernel
+    (interpret mode, block 2) within 1e-5, the card's budget for the step."""
+    b, h, w = shape
+    img, mask, y = _scenario(b, h, w)
+    a, cr, ci = _fields(y, mask)
+    z, wd = (t.astype(np.float32) for t in _state(img))
+    step_j = pallas_dc.make_fused_iteration(*(jnp.asarray(t, jnp.float32) for t in (a, cr, ci)), h, w, THR,
+                                            block=2, interpret=True)
+    ref = step_j(jnp.asarray(z), jnp.asarray(wd))
+    got = _cluster_mirror(z, wd, a, cr, ci, THR, np.float32, q)
+    for g, r in zip(got, ref):
+        assert g.dtype == np.float32
+        np.testing.assert_allclose(g, np.asarray(r), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("h, w", [(256, 254), (640, 368), (368, 320), (1024, 1024), (300, 255), (16, 4)])
+def test_asking_for_the_mixed_design_where_it_cannot_take_the_shape_raises(h, w):
+    assert fused_dc.mixed_size(h, w) == 0
+    with pytest.raises(ValueError, match="mixed design does not take"):
+        fused_dc.pick_design(h, w, "mixed")
+    if w % 2 == 0 and w >= 8:
+        a, cr, ci = (np.zeros(s, np.float32) for s in ((h, w // 2 + 1), (1, h, w // 2 + 1), (1, h, w // 2 + 1)))
+        with pytest.raises(ValueError, match="mixed design does not take"):
+            fused_dc.make_fused_iteration(a, cr, ci, h, w, THR, device="cpu", design="mixed")
+
+
+def test_mixed_design_takes_powers_of_two_when_asked():
+    # the rule gives 256 x 256 to the cluster design; asked for, the mixed one takes it
+    assert fused_dc.pick_design(256, 256) == ("cluster", 8)
+    assert fused_dc.pick_design(256, 256, "mixed") == ("mixed", 8)
+
+
+def test_mixed_rule_passes_over_a_q_the_device_cannot_hold():
+    # 320 x 320: Q = 10 fits two an SM; a device with no room for a cluster of
+    # 10 gets the next Q that fits two an SM, 16
+    assert fused_dc.mixed_size(320, 320) == 10
+    assert fused_dc.mixed_size(320, 320, active=lambda q: 0 if q == 10 else 3) == 16
+    assert fused_dc.mixed_size(320, 320, active=lambda q: 0) == 0
+    assert fused_dc.pick_design(320, 320, active=lambda q: 0) == ("strips", 0)
+
+
+def test_mixed_block_layout():
+    # 320 x 320 at Q = 10 (R = 32): 41,216 B of spectrum with z at its tail,
+    # 40,960 of w, 33,280 of work: two blocks an SM
+    assert fused_dc.mixed_smem(320, 320, 10) == 16 + 41216 + 40960 + 33280
+    assert 2 * (fused_dc.mixed_smem(320, 320, 10) + fused_dc.H100_SMEM[2]) <= fused_dc.H100_SMEM[1]
+    # an odd R (75 at 300 x 256, Q = 4): z starts 16-byte aligned, 8 * 76 bytes in
+    r, w = 75, 256
+    assert fused_dc.mixed_smem(300, 256, 4) == 16 + (8 * 76 + 4 * w * r) + 4 * r * w + 33280
+    # Cr and Ci of unevenly split slots can outgrow w's rows: 256 x 300 at Q = 8
+    # holds 2 x 256 x 19 floats of C against 32 x 300 of w
+    assert fused_dc.mixed_smem(256, 300, 8) == 16 + (8 * 32 + 4 * 300 * 32) + 4 * 2 * 256 * 19 + 33280
