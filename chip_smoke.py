@@ -191,6 +191,22 @@ Phases, each timed and each fatal on failure:
            pixels cv2 gives (the BMPs' by OpenCV's rule, the JPEGs' stored).
            Each run's K1-K3 counts are set to 0 just before it and read just
            after;
+- examples: the six example programs of ``pnp_admm_cnc_mri_torch/examples``
+           through their ``main`` at their published arguments (the BM3D
+           demos at 128 x 128, the colored defaults against a synthetic
+           parameter database; MRI at 256 x 256 x 50 and SR x2 at 256 x 256 x
+           8 on a phantom written as the testset's ``05.png``, DRUNet the
+           train phase's 200-step network), float32 on the card, each with
+           K1-K3's counts set to 0 just before and read just after (MRI: 50
+           K1 and 50 K2 launches, the others 0), run twice and timed, its
+           PSNRs printed and finite (the BM3D outputs above their inputs,
+           the classical MRI reconstructions above zero-filled); each held
+           against its ``--f64`` run on the card and, where no CNN weights
+           reach a line, against the JAX package's float32 PSNR; float32 and
+           float64 on the card against ``--cpu --f64`` (the BM3D demos at
+           their published arguments, MRI and SR on a 64 x 64 phantom, MRI at
+           4 iterations); one ``python -m`` cold process of
+           ``bm3d_multichannel`` printing the in-process run's lines;
 - distributed: the multi-device path of ``parallel/`` (mesh, reductions,
            spatial FFT-ADMM, sharded consensus), the sharded sweep, the
            multihost worker and the dp x tp trainer. At world 1 on NCCL in
@@ -1590,6 +1606,191 @@ def phase_catalog(dev, tmp: str, tdir: str, ddir: str, img, y, mask) -> dict:
     log(f"catalog (e): {len(names)} fixtures decode to their stored cv2 pixels; a 15-image testset of .png-named "
         f"BMP (10) and JPEG (5) payloads read in {read_s:.3f} s as cv2 reads them and solved by cli.main admm_l1 "
         f"on the card: PSNR lines equal to those of its cv2 pixels as PNG ({lines['mixed']['psnr']:.4f} dB)")
+    return res
+
+
+# -- examples: the port's six example programs at their published sizes ------
+EXAMPLES = ("bm3d_grayscale", "bm3d_rgb", "bm3d_multichannel", "bm3d_deblurring", "mri_reconstruction",
+            "super_resolution")
+EXAMPLE_PHANTOM_SEED = 11
+# The examples run at their published arguments, their defaults (MRI: ITERS
+# iterations). The two CNN examples' float64 CPU run is cut to a 64 x 64
+# phantom (MRI also to 4 iterations): the CPU's float64 DRUNet forward at 256
+# x 256 takes ~4.4 s, and MRI's published run makes 100 of them.
+EXAMPLE_CPU_CUT = {"mri_reconstruction": ["--iters", "4"], "super_resolution": []}
+EXAMPLE_DEVICE_DB = 1e-6  # float64 on the card against float64 on the CPU, each PSNR
+# Float32 against float64 (the card's float64, and the CPU's at the cut), and
+# the card against the JAX package's float32 run: the lines no CNN reaches
+# within 1e-3 dB (measured at most 5.2e-5, PERF.md); the DRUNet lines within
+# 0.25 dB: the train phase's 200-step network brings no PnP line above 7 dB,
+# and on such outputs float32 against float64 measured 8.4e-3 (MRI) and
+# 1.7e-2 dB (SR) at the published arguments, 4.4e-2 dB at SR's CPU cut.
+EXAMPLE_F32_DB = 1e-3
+EXAMPLE_CNN_F32_DB = 0.25
+CNN_LINES = ("PnP-drunet_gray", "FISTA-drunet_gray", "PnP")  # the MRI and SR lines DRUNet reaches
+# The JAX examples' PSNRs (dB, unrounded) on these inputs, float32 on the CPU
+# (python3 probes/examples_jax_psnr.py): the lines that no CNN weights reach.
+JAX_EXAMPLE_PSNR = {
+    "bm3d_grayscale": {"noisy": 16.22137347865354, "denoised": 35.551093421771924},
+    "bm3d_rgb": {"noisy": 19.987949753442447, "denoised": 32.171210586487206},
+    "bm3d_multichannel": {"noisy": 15.127188779716555, "denoised": 32.869073458028},
+    "bm3d_deblurring": {"blurred+noisy": 26.8308127963121, "deblurred": 31.687599735510364},
+    "mri_reconstruction": {"zero-fill": 20.838123321533203, "ADMM-L1": 24.29286003112793,
+                           "ADMM-CNC": 24.625234603881836, "FISTA-L1": 24.568586349487305},
+    "super_resolution": {"zero-fill": 31.22062873840332},
+}
+
+
+def write_example_assets(root: str) -> dict:
+    """The examples' inputs under ``root``: the testset ``set1/05.png`` (a
+    256 x 256 phantom, which the MRI and SR examples read by default), the
+    same phantom at 64 x 64, a synthetic BM3D parameter database (the
+    reference's ``param_matching_data.mat`` is not in the repository: the
+    20 x 60 features and parameter indices 1..21 of the CPU tests, from
+    ``default_rng(3)``), and an empty data directory (no masks, noise or
+    BM3D example images: the examples draw their own). Returns the paths."""
+    import numpy as np
+    import scipy.io as sio
+
+    from pnp_admm_cnc_mri_torch.data import images, phantom
+
+    paths = {"testsets": os.path.join(root, "testsets"), "small": os.path.join(root, "phantom64.png"),
+             "db": os.path.join(root, "param_matching_data.mat"), "data": os.path.join(root, "data")}
+    images.imsave(phantom.mri_phantoms(1, H, seed=EXAMPLE_PHANTOM_SEED)[0] * 255.0,
+                  os.path.join(paths["testsets"], "set1", "05.png"))
+    images.imsave(phantom.mri_phantoms(1, 64, seed=EXAMPLE_PHANTOM_SEED)[0] * 255.0, paths["small"])
+    rng = np.random.default_rng(3)
+    sio.savemat(paths["db"], {"features": rng.random((20, 60)) * 10.0,
+                              "maxes": rng.integers(1, 22, size=(60, 4)).astype(np.float64)})
+    os.makedirs(paths["data"], exist_ok=True)
+    return paths
+
+
+@contextlib.contextmanager
+def example_defaults(paths: dict, zoo: str):
+    """The port's default asset paths pointed at ``paths`` and the model zoo
+    at ``zoo`` inside the block."""
+    from pnp_admm_cnc_mri_torch.data import images, masks, noise
+    from pnp_admm_cnc_mri_torch.priors import denoiser
+    from pnp_admm_cnc_mri_torch.priors.bm3d import psd_params
+
+    targets = [(images, "DEFAULT_TESTSETS", paths["testsets"]), (masks, "DEFAULT_DATA_DIR", paths["data"]),
+               (noise, "DEFAULT_DATA_DIR", paths["data"]), (psd_params, "DEFAULT_DB", paths["db"]),
+               (denoiser, "DEFAULT_MODEL_ZOO", zoo)]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+    for mod, attr, value in targets:
+        setattr(mod, attr, value)
+    try:
+        yield
+    finally:
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
+
+
+def run_example(name: str, argv: list) -> tuple:
+    """An example's ``main(argv)`` in this process: (its PSNRs, its stdout lines)."""
+    import importlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        out = importlib.import_module(f"pnp_admm_cnc_mri_torch.examples.{name}").main(argv)
+    return out, buf.getvalue().strip().splitlines()
+
+
+def _gap(a: dict, b: dict, cnn: bool = False):
+    """The largest PSNR difference over the lines DRUNet reaches (``cnn``)
+    or over the others; None where there is no such line."""
+    check(list(a) == list(b), f"the PSNR lines differ: {list(a)} against {list(b)}")
+    return max((abs(a[k] - b[k]) for k in a if (k in CNN_LINES) == cnn), default=None)
+
+
+def phase_examples(tmp: str) -> dict:
+    """The six examples of ``pnp_admm_cnc_mri_torch/examples`` through their
+    ``main`` at their published arguments, on the card, float32: each
+    counted (K1-K3 at 0 just before, read just after) and timed twice; held
+    against its ``--f64`` run on the card, and the lines no CNN weights
+    reach against the JAX package's run; the BM3D demos' float32 and
+    float64 card runs against ``--cpu --f64`` at the same arguments, the CNN
+    examples' at the CPU cut. DRUNet (``drunet_gray``, the MRI and SR
+    examples' default) is the train phase's 200-step network. Then one cold
+    ``python -m`` process of ``bm3d_multichannel``, equal to the in-process
+    run. Returns the PSNRs, gaps, times and launch counts."""
+    import numpy as np
+    import torch
+
+    root = os.path.join(tmp, "examples")
+    paths = write_example_assets(root)
+    zoo = os.path.join(root, "zoo")
+    os.makedirs(zoo)
+    trained = os.path.join(tmp, "train", "drunet.npz")
+    check(os.path.exists(trained), f"examples: the train phase's DRUNet {trained} is missing")
+    shutil.copy(trained, os.path.join(zoo, "drunet_gray.npz"))
+    res: dict = {"launches": {}, "psnr": {}, "gaps": {}, "wall_s": {}}
+    printed_lines = {}
+    with example_defaults(paths, zoo):
+        for name in EXAMPLES:
+            dist_reset()
+            t0 = time.perf_counter()
+            out, lines = run_example(name, [])
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            res["launches"][name] = dist_counts()
+            t0 = time.perf_counter()
+            run_example(name, [])
+            torch.cuda.synchronize()
+            res["wall_s"][name] = {"first": first_s, "warm": time.perf_counter() - t0}
+            want = {"l1_tail": 0, "cnc_tail": 0, "fused_iteration": 0}
+            if name == "mri_reconstruction":
+                want.update(l1_tail=ITERS, cnc_tail=ITERS)
+            check(res["launches"][name] == want, f"{name}: launches {res['launches'][name]}, expected {want}")
+            printed = [float(v) for v in re.findall(r"(-?\d+\.\d\d) dB", "\n".join(lines))]
+            check(len(printed) == len(out) and all(np.isfinite(v) and abs(p - v) <= 0.005 + 1e-9
+                                                   for p, v in zip(printed, out.values())), f"{name}: {lines}")
+            if name.startswith("bm3d"):
+                src, dst = list(out.values())
+                check(dst > src, f"{name}: the output's PSNR {dst} is not above the input's {src}")
+                cut = []
+            else:
+                cut = ["--image", paths["small"], *EXAMPLE_CPU_CUT[name]]
+            if name == "mri_reconstruction":
+                for k in ("ADMM-L1", "ADMM-CNC", "FISTA-L1"):
+                    check(out[k] > out["zero-fill"], f"{name}: {k} {out[k]} not above zero-fill {out['zero-fill']}")
+                check(len(out) == 6, f"{name}: the PnP stage did not run: {lines}")
+            out64, _ = run_example(name, ["--f64"])
+            cpu64, _ = run_example(name, cut + ["--cpu", "--f64"])
+            cut32, cut64 = (out, out64) if not cut else (run_example(name, cut)[0],
+                                                         run_example(name, cut + ["--f64"])[0])
+            jax_ref = JAX_EXAMPLE_PSNR.get(name, {})
+            gaps = res["gaps"][name] = {
+                "f32_vs_f64": _gap(out, out64), "cut_f32_vs_cpu_f64": _gap(cut32, cpu64),
+                "cnn_f32_vs_f64": _gap(out, out64, True), "cnn_cut_f32_vs_cpu_f64": _gap(cut32, cpu64, True),
+                "cut_f64_vs_cpu_f64": max(_gap(cut64, cpu64), _gap(cut64, cpu64, True) or 0.0),
+                "vs_jax": max((abs(out[k] - v) for k, v in jax_ref.items()), default=None)}
+            res["psnr"][name], printed_lines[name] = out, lines
+            log(f"examples {name} (defaults): " + " | ".join(lines)
+                + f"; PSNRs {json.dumps(out)}; float32 vs float64 and the JAX package's (dB): {json.dumps(gaps)}; "
+                f"launches {json.dumps(res['launches'][name])}; wall s {json.dumps(res['wall_s'][name])}")
+            check(gaps["f32_vs_f64"] <= EXAMPLE_F32_DB and gaps["cut_f32_vs_cpu_f64"] <= EXAMPLE_F32_DB
+                  and all(gaps[k] is None or gaps[k] <= EXAMPLE_CNN_F32_DB
+                          for k in ("cnn_f32_vs_f64", "cnn_cut_f32_vs_cpu_f64")),
+                  f"{name}: float32 against float64 {gaps}")
+            check(gaps["cut_f64_vs_cpu_f64"] <= EXAMPLE_DEVICE_DB,
+                  f"{name}: the card's float64 against the CPU's {gaps}")
+            check(gaps["vs_jax"] is None or gaps["vs_jax"] <= EXAMPLE_F32_DB, f"{name}: against JAX {gaps}")
+
+    # a cold process of an example's module entry, from outside the repository
+    env = dict(os.environ, PYTHONPATH=ROOT, PNPADMM_DATA=paths["data"])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pnp_admm_cnc_mri_torch.examples.bm3d_multichannel"],
+                          capture_output=True, text=True, timeout=300, cwd=root, env=env)
+    res["wall_s"]["cold_process_bm3d_multichannel"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m ...examples.bm3d_multichannel failed: {proc.stderr[-2000:]}")
+    check(proc.stdout.strip().splitlines() == printed_lines["bm3d_multichannel"],
+          f"the cold process printed {proc.stdout!r}, in process {printed_lines['bm3d_multichannel']}")
+    log(f"examples: python -m pnp_admm_cnc_mri_torch.examples.bm3d_multichannel as a cold process: "
+        f"{res['wall_s']['cold_process_bm3d_multichannel']:.1f} s, its lines equal to the in-process run's")
     return res
 
 
@@ -3076,6 +3277,10 @@ def main() -> dict:
         rates["catalog"] = {k: v for k, v in cat_res.items() if k != "launches"}
         phase("catalog", t)
         t = time.perf_counter()
+        ex_res = phase_examples(tmp)
+        rates["examples"] = {k: ex_res[k] for k in ("wall_s", "psnr")}
+        phase("examples", t)
+        t = time.perf_counter()
         dist_res = phase_distributed(dev, tmp, tdir, ddir, img_np, sweep_res)
         phase("distributed", t)
     finally:
@@ -3107,6 +3312,7 @@ def main() -> dict:
             "library_ms": None,
             "distributed_launches": {k: v[0][name] for k, v in dist_res["launches"]["w1"].items()},
             "catalog_launches": {k: v[name] for k, v in cat_res["launches"].items()},
+            "examples_launches": {k: v[name] for k, v in ex_res["launches"].items()},
         })
     # the fused iteration at the path's shape, from the scenario's initial state
     for label, design in (("admm_l1_fused_kernel", None), ("admm_l1_fused_kernel_strips", "strips")):
@@ -3195,6 +3401,7 @@ def main() -> dict:
             "library_ms": None,
             "distributed_launches": {k: v[0]["fused_iteration"] for k, v in dist_res["launches"]["w1"].items()},
             "catalog_launches": {k: v["fused_iteration"] for k, v in cat_res["launches"].items()},
+            "examples_launches": {k: v["fused_iteration"] for k, v in ex_res["launches"].items()},
         })
     log(f"timing: {json.dumps(rates)}")
     phase("timing", t)

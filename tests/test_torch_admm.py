@@ -238,7 +238,9 @@ def test_smoke_scenario_beats_zero_fill_at_small_size():
         assert torch.isfinite(p).all() and (p > zf).all(), (p, zf)
 
 
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cv2", "pnp_admm_cnc_mri_tpu"}
+# ``examples`` is the JAX package's top-level examples folder (the port's own are
+# ``pnp_admm_cnc_mri_torch.examples``)
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cv2", "pnp_admm_cnc_mri_tpu", "examples"}
 
 
 def _port_sources():
@@ -252,6 +254,10 @@ def _port_sources():
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_sources()
     assert len(files) > 10
+    example_dir = os.path.join(REPO, "pnp_admm_cnc_mri_torch", "examples")
+    assert {os.path.join(example_dir, f"{n}.py") for n in (
+        "mri_reconstruction", "super_resolution", "bm3d_grayscale", "bm3d_deblurring", "bm3d_rgb",
+        "bm3d_multichannel")} <= set(files)
     bad = []
     for path in files:
         tree = ast.parse(open(path).read(), path)
